@@ -1,0 +1,236 @@
+"""ogbn-arxiv student training CLI (counterpart of
+``efficient_gnns_tpu/cli/arxiv.py``), with the same flags and outputs:
+
+    python -m efficient_gnns_tpu_torch.cli.arxiv --gnn gcn --training kd \\
+        --alpha 0.9 --kd_T 4 --runs 10 --epochs 500 --device cuda
+
+Each run appends per-epoch JSONL records to
+``<out_dir>/<expt_name>/<gnn>-<mode>/seed<seed>/metrics.jsonl`` and the
+command writes ``<out_dir>/<expt_name>-<gnn>-<mode>.json`` (args, per-run
+statistics, across-run statistics).
+
+Ported so far: ``--gnn gcn`` with ``--training supervised|kd`` on
+``--dataset synthetic``, the oracle teacher standing in for teacher dumps.
+Every other choice raises ``NotImplementedError`` naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="ogbn-arxiv distillation (PyTorch)")
+    # experiment
+    p.add_argument("--expt_name", type=str, default="debug")
+    p.add_argument("--dataset", type=str, default="synthetic")
+    p.add_argument("--gnn", type=str, default="gcn", choices=["gcn", "sage"])
+    p.add_argument(
+        "--training",
+        type=str,
+        default="supervised",
+        choices=["supervised", "kd", "fitnet", "at", "gpw", "lpw", "nce", "gcd",
+                 "nce-labels", "nce-edges", "nce-labels-edges"],
+    )
+    p.add_argument("--kd_and_aux", action="store_true")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device the run uses (cuda, cuda:1, cpu)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--runs", type=int, default=10)
+    p.add_argument("--epochs", type=int, default=500)
+    p.add_argument("--log_steps", type=int, default=50)
+    # GNN
+    p.add_argument("--num_layers", type=int, default=2)
+    p.add_argument("--hidden_channels", type=int, default=256)
+    p.add_argument("--dropout", type=float, default=0.5)
+    p.add_argument("--lr", type=float, default=0.01)
+    # KD
+    p.add_argument("--alpha", type=float, default=0.9)
+    p.add_argument("--kd_T", type=float, default=4.0)
+    p.add_argument("--kd_reduction", type=str, default="numel",
+                   choices=["numel", "batchmean"],
+                   help="'numel' = reference F.kl_div('mean') parity "
+                        "(KL/(N*C)); 'batchmean' = standard Hinton scaling")
+    p.add_argument("--beta", type=float, default=1000.0)
+    p.add_argument("--kernel", type=str, default="cosine",
+                   choices=["cosine", "poly", "l2", "rbf"])
+    p.add_argument("--max_samples", type=int, default=8192)
+    p.add_argument("--proj_dim", type=int, default=256)
+    p.add_argument("--nce_T", type=float, default=0.075)
+    # teacher artifacts
+    p.add_argument("--teacher_dir", type=str, default=None,
+                   help="directory of per-seed teacher .npz dumps")
+    p.add_argument("--data_root", type=str, default="dataset")
+    # synthetic dataset sizing
+    p.add_argument("--num_nodes", type=int, default=20000)
+    p.add_argument("--num_edges", type=int, default=120000)
+    p.add_argument("--signal", type=float, default=0.8)
+    p.add_argument("--label_noise", type=float, default=0.0)
+    p.add_argument("--feat_sparse", type=float, default=0.0)
+    p.add_argument("--n_super", type=int, default=0)
+    p.add_argument("--sub_scale", type=float, default=0.4)
+    p.add_argument("--train_frac", type=float, default=0.54)
+    p.add_argument("--epoch_chunk", type=int, default=50,
+                   help="epochs per chunk (one host synchronisation per chunk)")
+    p.add_argument("--out_dir", type=str, default="logs")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="also write TensorBoard event files")
+    p.add_argument("--checkpoint_every", type=int, default=0)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--platform", type=str, default=None,
+                   help="JAX platform override of the JAX CLI; the port takes "
+                        "--device instead")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    if args.platform is not None:
+        raise ValueError("--platform selects a JAX platform; use --device")
+    if args.dataset != "synthetic":
+        raise NotImplementedError(
+            f"--dataset {args.dataset} is not ported yet (ROADMAP.md Queue 1)")
+    if args.gnn != "gcn":
+        raise NotImplementedError(
+            "--gnn sage (SAGEConv, spmm_mean) is not ported yet "
+            "(ROADMAP.md Queue 1 items 2 and 4)")
+    if args.teacher_dir:
+        raise NotImplementedError(
+            "teacher .npz dumps are not ported yet (ROADMAP.md Queue 1 item 5)")
+    if args.checkpoint_every or args.resume:
+        raise NotImplementedError(
+            "checkpoints are not ported yet (ROADMAP.md Queue 1 item 6)")
+
+
+def load_dataset(args):
+    from efficient_gnns_tpu_torch.data import synthetic_node_dataset
+
+    return synthetic_node_dataset(
+        num_nodes=args.num_nodes, num_edges=args.num_edges, seed=42,
+        signal=args.signal, label_noise=args.label_noise,
+        feat_sparse=args.feat_sparse, train_frac=args.train_frac,
+        n_super=args.n_super, sub_scale=args.sub_scale,
+    )
+
+
+def oracle_teacher_logits(y: np.ndarray, num_classes: int) -> np.ndarray:
+    """Stand-in teacher for synthetic runs without dumps: 4 on the true
+    class, -2 elsewhere (the JAX CLI's oracle-teacher logits)."""
+    tl = np.full((len(y), num_classes), -2.0, np.float32)
+    tl[np.arange(len(y)), y] = 4.0
+    return tl
+
+
+def main(argv=None) -> dict:
+    """Run the CLI; returns what it writes to the JSON file."""
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
+    import torch
+
+    from efficient_gnns_tpu_torch.models import GCN
+    from efficient_gnns_tpu_torch.train import (
+        DistillConfig,
+        Logger,
+        MetricsWriter,
+        NodeDistillTrainer,
+    )
+
+    cfg = DistillConfig(
+        training=args.training,
+        kd_and_aux=args.kd_and_aux,
+        runs=args.runs,
+        epochs=args.epochs,
+        num_layers=args.num_layers,
+        hidden=args.hidden_channels,
+        dropout=args.dropout,
+        lr=args.lr,
+        alpha=args.alpha,
+        kd_T=args.kd_T,
+        kd_reduction=args.kd_reduction,
+        beta=args.beta,
+        kernel=args.kernel,
+        max_samples=args.max_samples,
+        proj_dim=args.proj_dim,
+        nce_T=args.nce_T,
+    )
+    device = torch.device(args.device)
+    ds = load_dataset(args)
+    device_name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                   else str(device))
+    print(
+        f"dataset={args.dataset} nodes={ds.num_nodes} "
+        f"edges={ds.graph.n_edge} classes={ds.num_classes} "
+        f"device={device_name}"
+    )
+    graph = ds.graph.to(device)  # once, shared by every run
+    teacher_logits = (oracle_teacher_logits(ds.y, ds.num_classes)
+                      if cfg.needs_teacher() else None)
+
+    logger = Logger(args.runs)
+    results = []
+    mode = args.training
+    for run in range(args.runs):
+        seed = args.seed + run
+        model = GCN(
+            ds.x.shape[1], cfg.hidden, ds.num_classes, cfg.num_layers,
+            dropout=cfg.dropout, seed=seed, device=device,
+        )
+        trainer = NodeDistillTrainer(
+            model, cfg, graph, ds.x, ds.y, ds.split_idx,
+            teacher_logits=teacher_logits, seed=seed, device=device,
+        )
+        run_dir = os.path.join(
+            args.out_dir, args.expt_name, f"{args.gnn}-{mode}", f"seed{seed}",
+        )
+        writer = MetricsWriter(run_dir, tensorboard=args.tensorboard)
+        t0 = time.time()
+        epoch = 1
+        while epoch <= args.epochs:
+            k = min(args.epoch_chunk, args.epochs - epoch + 1)
+            hist = trainer.run_epochs(epoch, k)
+            for i in range(k):
+                ep = epoch + i
+                loss, loss_cls, loss_aux, a_tr, a_va, a_te = hist[i]
+                accs = (float(a_tr), float(a_va), float(a_te))
+                logger.add_result(run, accs)
+                writer.write(ep, {
+                    "loss/train": float(loss),
+                    "loss/cls": float(loss_cls),
+                    "loss/aux": float(loss_aux),
+                    "acc/train": accs[0],
+                    "acc/valid": accs[1],
+                    "acc/test": accs[2],
+                })
+                if ep % args.log_steps == 0 or ep == args.epochs:
+                    print(
+                        f"Run {run + 1:02d} Epoch {ep:04d} "
+                        f"avg-epoch {(time.time() - t0) / ep:.3f}s "
+                        f"loss {float(loss):.4f} (cls {float(loss_cls):.4f}, "
+                        f"aux {float(loss_aux):.4f}) "
+                        f"train/val/test {accs[0]:.4f}/{accs[1]:.4f}/{accs[2]:.4f}",
+                        flush=True,
+                    )
+            epoch += k
+        writer.close()
+        logger.print_statistics(run)
+        results.append(
+            {"run": run, "seconds": time.time() - t0, **logger.run_statistics(run)}
+        )
+
+    logger.print_statistics()
+    os.makedirs(args.out_dir, exist_ok=True)
+    out = os.path.join(args.out_dir, f"{args.expt_name}-{args.gnn}-{mode}.json")
+    summary = {"args": vars(args), "runs": results,
+               "statistics": logger.statistics()}
+    with open(out, "w") as f:
+        json.dump(summary, f, indent=2)
+    print(f"wrote {out}")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

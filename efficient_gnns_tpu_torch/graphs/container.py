@@ -1,0 +1,99 @@
+"""Receiver-sorted padded COO graph with its CSR offsets and transpose.
+
+Counterpart of ``efficient_gnns_tpu/graphs/container.py``. The layout is the
+same as the JAX container:
+
+* ``senders`` / ``receivers`` are ``int32[E_pad]``, real edges first, sorted
+  by receiver (ties by sender); padding edges carry ``receiver == num_nodes``.
+* ``row_offsets`` is ``int32[N+1]`` over receivers. ``row_offsets[N]`` is the
+  number of real edges, so a row walk never reaches the padding.
+* The transpose (sender-sorted) order is stored once (``t_senders``,
+  ``t_receivers``, ``t_row_offsets``, ``csc_perm`` with
+  ``t_receivers == senders[csc_perm]``), because the gradient of an SpMM is
+  an SpMM over the transposed adjacency.
+
+Unlike the JAX container the transpose-ordered edge weight
+(``t_edge_weight == edge_weight[csc_perm]``) is stored too, built once at
+graph build, so the backward SpMM reads it without a per-step permutation.
+There is no ``EdgeBlocking``: receiver-sorted CSR is the layout the CUDA
+kernel walks directly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class Graph:
+    """A padded, receiver-sorted COO graph with a materialized transpose.
+
+    Attributes:
+      senders, receivers: int32[E_pad] edge endpoints in CSR order.
+      t_senders, t_receivers: int32[E_pad] endpoints in transpose order.
+      csc_perm: int32[E_pad] with ``t_receivers == senders[csc_perm]``.
+      row_offsets, t_row_offsets: int32[N+1] CSR offsets of both orders.
+      node_mask: bool[num_nodes], True for valid (non-padding) nodes.
+      num_nodes: padded node count (feature matrices are [num_nodes, F]).
+      n_edge: number of real edges.
+      edge_weight: optional float32[E_pad] per-edge scalar in CSR order;
+        padding entries are 0.
+      t_edge_weight: the same weights in transpose order.
+    """
+
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    t_senders: torch.Tensor
+    t_receivers: torch.Tensor
+    csc_perm: torch.Tensor
+    row_offsets: torch.Tensor
+    t_row_offsets: torch.Tensor
+    node_mask: torch.Tensor
+    num_nodes: int
+    n_edge: int
+    edge_weight: Optional[torch.Tensor] = None
+    t_edge_weight: Optional[torch.Tensor] = None
+
+    @property
+    def num_edges_padded(self) -> int:
+        return self.senders.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.senders.device
+
+    def to(self, device) -> "Graph":
+        """A copy with every tensor on ``device``."""
+        return dataclasses.replace(
+            self,
+            **{
+                f.name: getattr(self, f.name).to(device)
+                for f in dataclasses.fields(self)
+                if isinstance(getattr(self, f.name), torch.Tensor)
+            },
+        )
+
+    def transpose(self) -> "Graph":
+        """The transposed graph (receivers <-> senders); both edge orders
+        are already materialized, only ``csc_perm`` is inverted."""
+        inv = torch.empty_like(self.csc_perm)
+        inv[self.csc_perm.long()] = torch.arange(
+            self.csc_perm.shape[0], dtype=self.csc_perm.dtype, device=self.device
+        )
+        return Graph(
+            senders=self.t_senders,
+            receivers=self.t_receivers,
+            t_senders=self.senders,
+            t_receivers=self.receivers,
+            csc_perm=inv,
+            row_offsets=self.t_row_offsets,
+            t_row_offsets=self.row_offsets,
+            node_mask=self.node_mask,
+            num_nodes=self.num_nodes,
+            n_edge=self.n_edge,
+            edge_weight=self.t_edge_weight,
+            t_edge_weight=self.edge_weight,
+        )

@@ -1,0 +1,167 @@
+"""Host-side graph construction (counterpart of
+``efficient_gnns_tpu/graphs/preprocess.py``).
+
+NumPy preprocessing that turns a raw COO edge list into a receiver-sorted,
+padded :class:`Graph` with both CSR offset arrays. The sort and dedup use the
+NumPy forms of the JAX package's native helpers (``np.lexsort`` and
+``np.unique``), which give the identical edge order.
+
+Not ported here: the Pallas edge blockings and the hub-dense split (TPU
+layouts; the CUDA kernel walks CSR over all edges), ``gcn_norm="factored"``
+and per-edge types. See ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from efficient_gnns_tpu_torch.graphs.container import Graph
+
+
+def pad_length(n: int, multiple: int = 128) -> int:
+    """Round ``n`` up to a multiple."""
+    if n == 0:
+        return multiple
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def to_bidirected(
+    senders: np.ndarray, receivers: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Add reverse edges and deduplicate (DGL ``to_bidirected`` semantics);
+    the result is sorted by (sender, receiver)."""
+    senders = np.asarray(senders, dtype=np.int64)
+    receivers = np.asarray(receivers, dtype=np.int64)
+    s = np.concatenate([senders, receivers])
+    r = np.concatenate([receivers, senders])
+    edges = np.unique(np.stack([s, r], axis=1), axis=0)
+    return edges[:, 0], edges[:, 1]
+
+
+def add_self_loops(
+    senders: np.ndarray, receivers: np.ndarray, num_nodes: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Remove existing self loops, then add one per node."""
+    keep = senders != receivers
+    loop = np.arange(num_nodes, dtype=senders.dtype)
+    return (
+        np.concatenate([senders[keep], loop]),
+        np.concatenate([receivers[keep], loop]),
+    )
+
+
+def _lexsort_edges(senders: np.ndarray, receivers: np.ndarray) -> np.ndarray:
+    """Stable permutation sorting edges by (receiver, sender)."""
+    return np.lexsort((senders, receivers))
+
+
+def _csr_offsets(sorted_rows: np.ndarray, num_rows: int) -> np.ndarray:
+    """CSR offsets over an ascending row-id array (padding ids >= num_rows)."""
+    sorted_rows = np.asarray(sorted_rows, dtype=np.int64)
+    counts = np.bincount(sorted_rows[sorted_rows < num_rows], minlength=num_rows)
+    offsets = np.zeros(num_rows + 1, dtype=np.int32)
+    np.cumsum(counts, out=offsets[1:])
+    return offsets
+
+
+def build_graph(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    num_nodes: int,
+    *,
+    edge_weight: Optional[np.ndarray] = None,
+    bidirected: bool = False,
+    self_loops: bool = False,
+    pad_nodes_to: Optional[int] = None,
+    pad_edges_to: Optional[int] = None,
+    edge_pad_multiple: int = 1024,
+    n_node_valid: Optional[int] = None,
+    gcn_norm: bool = False,
+) -> Graph:
+    """Build a :class:`Graph` on the CPU from a raw COO edge list.
+
+    Sorts edges by receiver (ties by sender), materializes the transpose
+    order and both CSR offset arrays, and pads the edge list to a static
+    length with out-of-range sentinels. Move the result with ``.to(device)``.
+
+    Args:
+      pad_nodes_to: node-dimension size (defaults to ``num_nodes``).
+      pad_edges_to: edge count; defaults to the edge count rounded up to
+        ``edge_pad_multiple``.
+      n_node_valid: number of valid nodes (defaults to ``num_nodes``).
+      gcn_norm: attach the symmetric GCN normalization
+        ``d_r^-1/2 * d_s^-1/2`` as ``edge_weight`` (the JAX package's fused
+        mode).
+    """
+    if gcn_norm == "factored":
+        raise NotImplementedError(
+            "gcn_norm='factored' is not ported yet (ROADMAP.md, Queue 1 item 1)"
+        )
+    senders = np.asarray(senders, dtype=np.int64)
+    receivers = np.asarray(receivers, dtype=np.int64)
+    if bidirected:
+        if edge_weight is not None:
+            raise ValueError("bidirected=True incompatible with edge payloads")
+        senders, receivers = to_bidirected(senders, receivers)
+    if self_loops:
+        if edge_weight is not None:
+            raise ValueError("self_loops=True incompatible with edge payloads")
+        senders, receivers = add_self_loops(senders, receivers, num_nodes)
+
+    n_pad = int(pad_nodes_to) if pad_nodes_to is not None else int(num_nodes)
+    if n_pad < num_nodes:
+        raise ValueError(f"pad_nodes_to={n_pad} < num_nodes={num_nodes}")
+    e = senders.shape[0]
+    e_pad = (
+        int(pad_edges_to) if pad_edges_to is not None else pad_length(e, edge_pad_multiple)
+    )
+    if e_pad < e:
+        raise ValueError(f"pad_edges_to={e_pad} < num_edges={e}")
+    if e_pad >= 2**31 or n_pad >= 2**31:
+        raise ValueError(f"int32 indices cannot address {e_pad} edges / {n_pad} nodes")
+
+    csr_order = _lexsort_edges(senders, receivers)
+    s_csr = senders[csr_order]
+    r_csr = receivers[csr_order]
+    csc_perm = _lexsort_edges(r_csr, s_csr)
+    t_s = r_csr[csc_perm]
+    t_r = s_csr[csc_perm]
+
+    def _pad_idx(a: np.ndarray) -> torch.Tensor:
+        out = np.full(e_pad, n_pad, dtype=np.int32)
+        out[:e] = a
+        return torch.from_numpy(out)
+
+    pad_perm = np.arange(e_pad, dtype=np.int32)
+    pad_perm[:e] = csc_perm
+
+    ew = None
+    if edge_weight is not None:
+        ew = np.zeros(e_pad, dtype=np.float32)
+        ew[:e] = np.asarray(edge_weight, dtype=np.float32)[csr_order]
+    if gcn_norm:
+        if ew is not None:
+            raise ValueError("gcn_norm=True incompatible with edge_weight")
+        deg = np.bincount(r_csr, minlength=n_pad).astype(np.float64)
+        inv_sqrt = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1.0)), 0.0)
+        ew = np.zeros(e_pad, dtype=np.float32)
+        ew[:e] = (inv_sqrt[s_csr] * inv_sqrt[r_csr]).astype(np.float32)
+
+    n_valid = num_nodes if n_node_valid is None else n_node_valid
+    return Graph(
+        senders=_pad_idx(s_csr),
+        receivers=_pad_idx(r_csr),
+        t_senders=_pad_idx(t_s),
+        t_receivers=_pad_idx(t_r),
+        csc_perm=torch.from_numpy(pad_perm),
+        row_offsets=torch.from_numpy(_csr_offsets(r_csr, n_pad)),
+        t_row_offsets=torch.from_numpy(_csr_offsets(t_r, n_pad)),
+        node_mask=torch.arange(n_pad) < n_valid,
+        num_nodes=n_pad,
+        n_edge=e,
+        edge_weight=None if ew is None else torch.from_numpy(ew),
+        t_edge_weight=None if ew is None else torch.from_numpy(ew[pad_perm]),
+    )

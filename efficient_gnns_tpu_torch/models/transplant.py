@@ -1,0 +1,62 @@
+"""Load flax parameters of the JAX package's models into the port's modules.
+
+``from_jax_params`` takes the flax ``params`` and ``batch_stats`` trees as
+nested dicts of NumPy arrays (e.g. ``jax.tree.map(np.asarray, params)``,
+converted by the caller) and returns a ``state_dict`` for the port's model.
+A flax ``Dense`` kernel is ``[in, out]``; the port keeps that layout (its
+``GCNConv.weight`` is applied as ``x @ weight``), so kernels are copied, not
+transposed.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_PARAM_RULES = (
+    (re.compile(r"conv_(\d+)/Dense_0/kernel"), "convs.{}.weight"),
+    (re.compile(r"conv_(\d+)/bias"), "convs.{}.bias"),
+    (re.compile(r"bn_(\d+)/scale"), "bns.{}.scale"),
+    (re.compile(r"bn_(\d+)/bias"), "bns.{}.bias"),
+)
+_STAT_RULES = (
+    (re.compile(r"bn_(\d+)/mean"), "bns.{}.running_mean"),
+    (re.compile(r"bn_(\d+)/var"), "bns.{}.running_var"),
+)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, key + "/"))
+        else:
+            flat[key] = np.asarray(v)
+    return flat
+
+
+def _rename(flat: Dict[str, np.ndarray], rules) -> Dict[str, torch.Tensor]:
+    out = {}
+    for key, value in flat.items():
+        for pattern, template in rules:
+            m = pattern.fullmatch(key)
+            if m:
+                out[template.format(m.group(1))] = torch.from_numpy(
+                    np.array(value, dtype=np.float32)
+                )
+                break
+        else:
+            raise KeyError(f"no port counterpart for flax variable {key!r}")
+    return out
+
+
+def from_jax_params(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for :class:`~efficient_gnns_tpu_torch.models.GCN` from
+    the JAX ``GCN``'s ``params`` and ``batch_stats``."""
+    state = _rename(_flatten(params), _PARAM_RULES)
+    state.update(_rename(_flatten(batch_stats), _STAT_RULES))
+    return state

@@ -1,0 +1,122 @@
+"""K1: CSR segment sum with a fused row gather — wrapper and plain version.
+
+    out[r, :] = sum_{e in row_offsets[r] .. row_offsets[r+1]} w[e] * x[src[e], :]
+
+Replaces ``efficient_gnns_tpu/ops/pallas/segment_matmul.py::blocked_segment_sum``
+(and the XLA row gather in front of it, ``ops/spmm.py::_blocked_scatter``).
+The CUDA kernel is ``csrc/segment_sum.cu``: bounded by device-memory bytes;
+one warp owns one output row, so there are no float atomics and the result
+is deterministic. ``x`` is float32 or bfloat16, ``w`` float32 or absent,
+indices int32; accumulation and output are float32.
+
+:func:`csr_segment_sum` runs the plain version for tensors on the CPU and
+the kernel for tensors on a CUDA device; it never moves work between them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from efficient_gnns_tpu_torch.ops.cuda import build
+from efficient_gnns_tpu_torch.ops.segment import gather, segment_sum
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements in one 16-byte load
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("segment_sum")
+    if lib.egt_csr_segment_sum.argtypes is None:
+        p = ctypes.c_void_p
+        lib.egt_csr_segment_sum.argtypes = [
+            p, ctypes.c_int, ctypes.c_int, p, p, p, p, ctypes.c_int, ctypes.c_int, p,
+        ]
+        lib.egt_csr_segment_sum.restype = ctypes.c_int
+        lib.egt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.egt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, src, row_offsets, w) -> None:
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"x must be 2-D float32/bfloat16, got {x.dtype} {tuple(x.shape)}")
+    for name, t in (("src", src), ("row_offsets", row_offsets)):
+        if t.dim() != 1 or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be 1-D int32, got {t.dtype} {tuple(t.shape)}")
+    if row_offsets.numel() < 1:
+        raise ValueError("row_offsets must hold num_rows + 1 entries")
+    if w is not None and (w.dim() != 1 or w.dtype != torch.float32
+                          or w.shape[0] != src.shape[0]):
+        raise ValueError(f"w must be float32[{src.shape[0]}], got {w.dtype} {tuple(w.shape)}")
+    tensors = [x, src, row_offsets] + ([] if w is None else [w])
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("x, src, row_offsets and w must be on one device")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError("csr_segment_sum needs contiguous tensors")
+    if max(x.numel(), src.numel()) >= 2**31 or row_offsets.numel() >= 2**31:
+        raise ValueError("int32 indexing: x, src and row_offsets need < 2**31 entries")
+
+
+def csr_segment_sum_plain(
+    x: torch.Tensor,
+    src: torch.Tensor,
+    row_offsets: torch.Tensor,
+    w: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The plain PyTorch version: gather, scale, ``index_add_`` in float32.
+    Runs on any device (it is also the kernel's reference on the card)."""
+    num_rows = row_offsets.numel() - 1
+    e = int(row_offsets[-1])
+    deg = (row_offsets[1:] - row_offsets[:-1]).long()
+    rows = torch.repeat_interleave(
+        torch.arange(num_rows, device=x.device), deg, output_size=e
+    )
+    msgs = gather(x, src[:e]).float()
+    if w is not None:
+        msgs = msgs * w[:e, None]
+    return segment_sum(msgs, rows, num_rows)
+
+
+def csr_segment_sum(
+    x: torch.Tensor,
+    src: torch.Tensor,
+    row_offsets: torch.Tensor,
+    w: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """float32[num_rows, F] CSR segment sums of gathered (scaled) rows.
+
+    ``src[row_offsets[r]:row_offsets[r+1]]`` are the rows of ``x`` summed
+    into output row ``r``, each scaled by the matching ``w``. Entries of
+    ``src`` past ``row_offsets[-1]`` (padding) are never read. On a CUDA
+    tensor this launches the kernel (and counts the launch in
+    ``csr_segment_sum.launches``) or raises.
+    """
+    _check(x, src, row_offsets, w)
+    if x.device.type == "cpu":
+        return csr_segment_sum_plain(x, src, row_offsets, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"csr_segment_sum runs on cpu or cuda, not {x.device}")
+    lib = _lib()
+    num_rows, f = row_offsets.numel() - 1, x.shape[1]
+    out = torch.empty((num_rows, f), dtype=torch.float32, device=x.device)
+    vec = _VEC[x.dtype]
+    if f % vec or x.data_ptr() % 16:
+        vec = 1
+    rc = lib.egt_csr_segment_sum(
+        x.data_ptr(), _DTYPE_CODE[x.dtype], vec, src.data_ptr(),
+        None if w is None else w.data_ptr(), row_offsets.data_ptr(),
+        out.data_ptr(), num_rows, f,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"csr_segment_sum launch failed: {lib.egt_cuda_error_string(rc).decode()}"
+        )
+    csr_segment_sum.launches += 1
+    return out
+
+
+csr_segment_sum.launches = 0

@@ -39,6 +39,12 @@ assert jax.device_count() == 8, (
 )
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips (with a reason) without one"
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
