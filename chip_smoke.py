@@ -18,7 +18,20 @@ it imports nothing of JAX. Phases, each of which must pass:
    trainer on the CPU (which the tests hold against the JAX package);
 5. the slice: ``efficient_gnns_tpu_torch.cli.arxiv`` trains the 2 x 256 GCN
    student at arxiv width in ``supervised`` and ``kd`` mode, with K1's
-   launch counter read around each run.
+   launch counter read around each run;
+6. K2, K4, K5, K6 and K7 (the GAT attention kernels) against their plain
+   versions at the teacher's arxiv shapes (H = 3 heads of D = 250 and the
+   last layer's H = 1, D = 40; forward and transpose CSR), with their times,
+   the plain versions', one library yardstick's each and their bounds;
+7. small-input reference: the teacher trainer on the card against the same
+   trainer on the CPU (dropouts 0, no label split);
+8. the teacher slice: ``efficient_gnns_tpu_torch.cli.gat_teacher`` trains
+   the 3 x 3 x 250 GAT teacher at arxiv shape with the flags of
+   ``experiments/arxiv_hard.sh`` (attn-dst on) and dumps it, with the five
+   kernels' launch counters read around the run; then ``cli.arxiv`` trains
+   the GCN student in ``kd`` mode from that dump;
+9. a profile of one teacher epoch at arxiv shape (``torch.profiler``): the
+   device time by kernel, the table written to ``OUT_DIR``.
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before them.
@@ -28,6 +41,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -39,16 +54,39 @@ TOL = 1e-5  # |kernel - plain| <= TOL + TOL * sum_e |w_e x_e| (summation order)
 ARXIV = ["--dataset", "synthetic", "--num_nodes", "169343", "--num_edges",
          "1166243", "--gnn", "gcn", "--hidden_channels", "256", "--num_layers", "2"]
 EPOCHS = 10
+# experiments/arxiv_hard.sh step 1 at arxiv shape, attn-dst on (the CLI default)
+HARD = ["--num-nodes", "169343", "--num-edges", "1166243", "--signal", "0.3",
+        "--label-noise", "0.15"]
+TEACHER = HARD + ["--use-labels", "--n-label-iters", "1", "--use-norm",
+                  "--edge-drop", "0.3", "--input-drop", "0.25", "--n-runs", "1",
+                  "--seed", "0", "--save-pred", "--expt-name", "chip_smoke_teacher"]
+TEACHER_EPOCHS = 3
+# kernel launches of one teacher epoch (3 layers, n_label_iters 1, attn-dst):
+# 12 layer forwards (2 train + 2 eval per layer) and 3 layer backwards;
+# forward: K2 1, K5 1, K6 1, K7 3 (er, max, 1/sum); backward: K2 1, K4 1,
+# K5 3 (softmax VJP, der, del), K7 1
+TEACHER_LAUNCHES = {"K2": 12 + 3, "K4": 3, "K5": 12 + 3 * 3, "K6": 12, "K7": 12 * 3 + 3}
+HEADS = ((3, 250), (1, 40))  # the teacher's hidden layers and its last layer
 DEVICE = "cuda"
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out", "chip_smoke")
 
 
-def _time_ms(fn, reps):
+def _time_ms(fn, reps=None, budget_ms=1500.0):
+    """Mean device time of ``fn`` over ``reps`` launches after one warm-up;
+    ``reps=None`` picks as many as fit the budget (at most 20) from the
+    warm-up's time, so slow kernels are timed fewer times."""
     import torch
 
-    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    if reps is None:
+        reps = int(max(1, min(20, budget_ms // max(start.elapsed_time(end), 1e-3))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -78,10 +116,12 @@ def phase_build():
     t0 = time.time()
     logs = build.build()
     print(f"build: {', '.join(logs)} in {time.time() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    for name, log in logs.items():  # ptxas -v, one line per source
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
+        stack = [int(v) for v in re.findall(r"(\d+) bytes stack frame", log)]
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill stores", log)]
+        print(f"  {name}: {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
+              f"stack frame up to {max(stack)} B, spill stores up to {max(spills)} B")
 
 
 def phase_k1(graph):
@@ -94,8 +134,10 @@ def phase_k1(graph):
     n, e = g.num_nodes, g.n_edge
     deg = (g.row_offsets[1:] - g.row_offsets[:-1]).long()
     top = torch.topk(deg, 5).values.tolist()
+    import numpy
+
     print(f"K1 graph: N={n} E={e} max row degree={top[0]} top-5={top} "
-          f"mean={e / n:.1f}", flush=True)
+          f"mean={e / n:.1f} (drawn by numpy {numpy.__version__})", flush=True)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     records, failures = [], []
     for f in (256, 40):
@@ -194,7 +236,7 @@ def phase_slice():
     launches, failures = 0, []
     for training in ("supervised", "kd"):
         argv = ARXIV + ["--training", training, "--epochs", str(EPOCHS),
-                        "--runs", "1", "--log_steps", "1", "--epoch_chunk",
+                        "--runs", "1", "--log_steps", str(EPOCHS), "--epoch_chunk",
                         str(EPOCHS), "--device", DEVICE, "--out_dir", OUT_DIR,
                         "--expt_name", "chip_smoke"]
         csr_segment_sum.launches = 0
@@ -217,6 +259,293 @@ def phase_slice():
     return launches, failures
 
 
+def _bound(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _library_ms(what, fn):
+    """Time one PyTorch yardstick; None (with the reason) where it refuses."""
+    try:
+        return _time_ms(fn)
+    except (RuntimeError, NotImplementedError, TypeError, ValueError) as exc:
+        print(f"  library call {what} unavailable: {exc}")
+        return None
+
+
+def phase_attention_kernels(graph):
+    """K2, K4-K7 against their plain versions at the teacher's shapes."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops import cuda as K
+
+    g = graph.to(DEVICE)
+    n, e, e_pad = g.num_nodes, g.n_edge, g.num_edges_padded
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    records, failures = [], []
+    source = "efficient_gnns_tpu_torch/ops/cuda/csrc/"
+    pallas = "efficient_gnns_tpu/ops/pallas/"
+
+    def record(kernel, name, src_file, replaces, err, ok, fn, plain, library, n_bytes, n_ops,
+               shape):
+        ms = _time_ms(fn)
+        plain_ms = _time_ms(plain)
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        records.append({
+            "name": f"{kernel} {name}", "route": "cuda", "source": source + src_file,
+            "replaces": pallas + replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library, "shape": shape,
+        })
+        print(f"  {kernel} {name}: max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library} "
+              f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+        if not ok:
+            failures.append(f"{kernel} {name}")
+
+    directions = (("fwd", g.senders, g.receivers, g.row_offsets, None),
+                  ("bwd", g.t_senders, g.t_receivers, g.t_row_offsets, g.csc_perm.long()))
+    for h, d in HEADS:
+        hd = h * d
+        x = torch.randn(n, hd, generator=gen, device=DEVICE)
+        gg = torch.randn(n, hd, generator=gen, device=DEVICE)
+        w = torch.rand(e_pad, h, generator=gen, device=DEVICE)
+        v = torch.randn(e_pad, h, generator=gen, device=DEVICE)
+        vals = torch.randn(n, h, generator=gen, device=DEVICE)
+        for direction, src, dst, ro, perm in directions:
+            wd = w if perm is None else w[perm].contiguous()
+            shape = {"N": n, "E": e, "H": h, "D": d}
+            tag = f"{direction} H={h} D={d}"
+            # K2: multi-head segment sum; tolerance on each row's sum of |terms|
+            got = K.csr_segment_sum_heads(x, wd, src, ro)
+            want = K.csr_segment_sum_heads_plain(x, wd, src, ro)
+            scale = K.csr_segment_sum_heads_plain(x.abs(), wd.abs(), src, ro)
+            diff = (got - want).abs()
+            xs = [x.view(n, h, d)[:, j].contiguous() for j in range(h)]
+            mats = [torch.sparse_csr_tensor(ro, src[:e], wd[:e, j].contiguous(), (n, n))
+                    for j in range(h)]
+            lib = _library_ms(f"K2 ({h} CSR matmuls)",
+                              lambda: [a @ xj for a, xj in zip(mats, xs)])
+            record("K2", f"csr_segment_sum_heads {tag}", "segment_heads.cu",
+                   "segment_matmul.py:92", float(diff.max()),
+                   bool((diff <= TOL + TOL * scale).all()),
+                   lambda: K.csr_segment_sum_heads(x, wd, src, ro),
+                   lambda: K.csr_segment_sum_heads_plain(x, wd, src, ro), lib,
+                   2 * n * hd * 4 + e * 4 + e * h * 4 + (n + 1) * 4, 2 * e * hd, shape)
+            del got, want, scale, diff
+            # K4: per-edge head dots; tolerance on each dot's sum of |terms|
+            got = K.csr_sddmm_heads(gg, x, src, dst, ro, h)
+            want = K.csr_sddmm_heads_plain(gg, x, src, dst, ro, h)
+            scale = K.csr_sddmm_heads_plain(gg.abs(), x.abs(), src, dst, ro, h)
+            diff = (got - want).abs()
+            pattern = torch.sparse_csr_tensor(ro, src[:e], torch.zeros(e, device=DEVICE),
+                                              (n, n))
+            gs = [gg.view(n, h, d)[:, j].contiguous() for j in range(h)]
+            xts = [xj.t().contiguous() for xj in xs]
+            lib = _library_ms(f"K4 ({h} sampled_addmm calls)", lambda: [
+                torch.sparse.sampled_addmm(pattern, gj, xtj, beta=0.0)
+                for gj, xtj in zip(gs, xts)])
+            record("K4", f"csr_sddmm_heads {tag}", "segment_heads.cu",
+                   "segment_matmul.py:250", float(diff.max()),
+                   bool((diff <= TOL + TOL * scale).all()),
+                   lambda: K.csr_sddmm_heads(gg, x, src, dst, ro, h),
+                   lambda: K.csr_sddmm_heads_plain(gg, x, src, dst, ro, h), lib,
+                   2 * n * hd * 4 + 2 * e * 4 + e_pad * h * 4 + 4, 2 * e * hd, shape)
+            del got, want, scale, diff, pattern, mats
+            # K5 / K6: thin segment sum and max; K7: rows back to the edges
+            offsets = ro.long()
+            thin_bytes = e * h * 4 + (n + 1) * 4 + n * h * 4
+            got = K.csr_segment_sum_thin(v, ro)
+            want = K.csr_segment_reduce_thin_plain(v, ro, "sum")
+            scale = K.csr_segment_reduce_thin_plain(v.abs(), ro, "sum")
+            diff = (got - want).abs()
+            record("K5", f"csr_segment_sum_thin {tag}", "segment_thin.cu",
+                   "segment_thin.py:114", float(diff.max()),
+                   bool((diff <= TOL + TOL * scale).all()),
+                   lambda: K.csr_segment_sum_thin(v, ro),
+                   lambda: K.csr_segment_reduce_thin_plain(v, ro, "sum"),
+                   _library_ms("K5 (segment_reduce sum)", lambda: torch.segment_reduce(
+                       v[:e], "sum", offsets=offsets)),
+                   thin_bytes, e * h, {"N": n, "E": e, "H": h})
+            got = K.csr_segment_max_thin(v, ro)
+            want = K.csr_segment_reduce_thin_plain(v, ro, "max")
+            record("K6", f"csr_segment_max_thin {tag}", "segment_thin.cu",
+                   "segment_thin.py:186", float((got - want).abs().max()),
+                   bool(torch.equal(got, want)),
+                   lambda: K.csr_segment_max_thin(v, ro),
+                   lambda: K.csr_segment_reduce_thin_plain(v, ro, "max"),
+                   _library_ms("K6 (segment_reduce max)", lambda: torch.segment_reduce(
+                       v[:e], "max", offsets=offsets)),
+                   thin_bytes, e * h, {"N": n, "E": e, "H": h})
+            got = K.csr_tile_rows_thin(vals, dst, ro)
+            want = K.csr_tile_rows_thin_plain(vals, dst, ro)
+            record("K7", f"csr_tile_rows_thin {tag}", "segment_thin.cu",
+                   "segment_thin.py:145", float((got - want).abs().max()),
+                   bool(torch.equal(got, want)),
+                   lambda: K.csr_tile_rows_thin(vals, dst, ro),
+                   lambda: K.csr_tile_rows_thin_plain(vals, dst, ro),
+                   _library_ms("K7 (index_select)",
+                               lambda: vals.index_select(0, dst[:e])),
+                   n * h * 4 + e * 4 + e_pad * h * 4, 0, {"N": n, "E": e, "H": h})
+            del got, want
+    # padding edges lie past row_offsets[N]: poisoned, they must change nothing
+    h, d = HEADS[1]
+    x = torch.randn(n, h * d, generator=gen, device=DEVICE)
+    w = torch.rand(e_pad, h, generator=gen, device=DEVICE)
+    src, dst = g.senders.clone(), g.receivers.clone()
+    src[e:] = 2**31 - 1
+    dst[e:] = 2**31 - 1
+    nan_w = w.clone()
+    nan_w[e:] = float("nan")
+    checks = {
+        "K2": torch.equal(K.csr_segment_sum_heads(x, nan_w, src, g.row_offsets),
+                          K.csr_segment_sum_heads(x, w, g.senders, g.row_offsets)),
+        "K4": torch.equal(K.csr_sddmm_heads(x, x, src, dst, g.row_offsets, h),
+                          K.csr_sddmm_heads(x, x, g.senders, g.receivers, g.row_offsets, h)),
+        "K5": torch.equal(K.csr_segment_sum_thin(nan_w, g.row_offsets),
+                          K.csr_segment_sum_thin(w, g.row_offsets)),
+        "K6": torch.equal(K.csr_segment_max_thin(nan_w, g.row_offsets),
+                          K.csr_segment_max_thin(w, g.row_offsets)),
+        "K7": torch.equal(K.csr_tile_rows_thin(w[:n], dst, g.row_offsets),
+                          K.csr_tile_rows_thin(w[:n], g.receivers, g.row_offsets)),
+    }
+    failures += [f"{k} read a padding edge" for k, ok in checks.items() if not ok]
+    torch.cuda.synchronize()
+    return records, failures
+
+
+def _teacher_config(**kw):
+    from efficient_gnns_tpu_torch.train import TeacherConfig
+
+    return TeacherConfig(no_attn_dst=False, **kw)
+
+
+def phase_teacher_reference():
+    """The teacher trainer on the card against the CPU trainer, same start,
+    every dropout 0 and no label split (mask_rate 0)."""
+    import numpy as np
+
+    from efficient_gnns_tpu_torch.data import synthetic_node_dataset
+    from efficient_gnns_tpu_torch.train import GATTeacherTrainer
+
+    ds = synthetic_node_dataset(num_nodes=3000, num_edges=15000, seed=5, gcn_norm=False)
+    cfg = _teacher_config(n_hidden=32, dropout=0.0, input_drop=0.0, edge_drop=0.0,
+                          mask_rate=0.0, lr=0.01)
+    hist = {}
+    for device in ("cpu", DEVICE):
+        trainer = GATTeacherTrainer(cfg, ds.graph, ds.x, ds.y, ds.split_idx,
+                                    ds.num_classes, device=device)
+        hist[device] = trainer.run_epochs(1, 3)[1]
+    losses = [0, 5, 6, 7]
+    got, want = hist[DEVICE][:, losses], hist["cpu"][:, losses]
+    print(f"teacher reference: cuda vs cpu trainer, 3 epochs, losses {got[:, 0].tolist()} "
+          f"max_abs_err={float(np.abs(got - want).max()):.3e}", flush=True)
+    return bool(np.isfinite(got).all() and np.allclose(got, want, rtol=1e-4, atol=1e-6))
+
+
+def phase_teacher_slice():
+    """The teacher CLI at arxiv shape (counts of K2, K4-K7 read around it),
+    then the student's ``kd`` from its dump (K1 counted). Returns
+    (launches by kernel, failures)."""
+    import math
+
+    import numpy as np
+
+    from efficient_gnns_tpu_torch.cli import arxiv, gat_teacher
+    from efficient_gnns_tpu_torch.distill import load_teacher_dump
+    from efficient_gnns_tpu_torch.ops import cuda as K
+
+    counters = {"K1": K.csr_segment_sum, "K2": K.csr_segment_sum_heads,
+                "K4": K.csr_sddmm_heads, "K5": K.csr_segment_sum_thin,
+                "K6": K.csr_segment_max_thin, "K7": K.csr_tile_rows_thin}
+    failures = []
+    for c in counters.values():
+        c.launches = 0
+    summary = gat_teacher.main(TEACHER + [
+        "--n-epochs", str(TEACHER_EPOCHS), "--epoch-chunk", str(TEACHER_EPOCHS),
+        "--log-every", "1", "--out-dir", OUT_DIR, "--device", DEVICE])
+    launches = {k: c.launches for k, c in counters.items()}
+    run = summary["runs"][0]
+    print(f"teacher slice: launches {launches} (expected per epoch {TEACHER_LAUNCHES}) "
+          f"mean epoch (train step + eval) {run['seconds'] / TEACHER_EPOCHS * 1e3:.1f} ms "
+          f"losses {run['losses']}", flush=True)
+    for k, per_epoch in TEACHER_LAUNCHES.items():
+        if launches[k] != per_epoch * TEACHER_EPOCHS:
+            failures.append(f"teacher: {launches[k]} {k} launches")
+    if launches["K1"]:
+        failures.append("teacher launched K1")
+    if not all(math.isfinite(v) for v in run["losses"]):
+        failures.append("teacher losses not finite")
+    dump_dir = os.path.join(OUT_DIR, "teacher_dumps", "chip_smoke_teacher")
+    feats, logits = load_teacher_dump(dump_dir, 0)
+    print(f"teacher dump: features {feats.shape} logits {logits.shape}", flush=True)
+    if (feats.shape != (169343, 750) or logits.shape != (169343, 40)
+            or not (np.isfinite(feats).all() and np.isfinite(logits).all())):
+        failures.append("teacher dump not finite [N, 750] / [N, 40]")
+
+    K.csr_segment_sum.launches = 0
+    try:
+        arxiv.main(ARXIV + ["--signal", "0.3", "--label_noise", "0.15", "--training", "kd",
+                            "--alpha", "0.9", "--kd_T", "4", "--teacher_dir", dump_dir,
+                            "--epochs", str(EPOCHS), "--runs", "1",
+                            "--log_steps", str(EPOCHS), "--epoch_chunk", str(EPOCHS),
+                            "--device", DEVICE, "--out_dir", OUT_DIR,
+                            "--expt_name", "chip_smoke_dump"])
+    finally:  # the dump is 0.5 GB: too large to keep among the run's outputs
+        shutil.rmtree(os.path.dirname(dump_dir))
+    k1 = K.csr_segment_sum.launches
+    with open(os.path.join(OUT_DIR, "chip_smoke_dump", "gcn-kd", "seed0",
+                           "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss/train"] for line in f][-EPOCHS:]
+    print(f"student kd on the teacher dump: K1 launches={k1} (expected {6 * EPOCHS}) "
+          f"losses {[round(v, 4) for v in losses]}", flush=True)
+    if k1 != 6 * EPOCHS:
+        failures.append(f"kd on dump: {k1} K1 launches")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        failures.append("kd on dump: losses not finite and falling")
+    launches["K1"] = k1
+    return launches, failures
+
+
+def phase_teacher_profile(ds):
+    """One teacher epoch at arxiv shape under torch.profiler: device time by
+    kernel (the table goes to ``OUT_DIR/teacher_profile.txt``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from efficient_gnns_tpu_torch.train import GATTeacherTrainer
+
+    cfg = _teacher_config(input_drop=0.25, edge_drop=0.3)
+    trainer = GATTeacherTrainer(cfg, ds.graph, ds.x, ds.y, ds.split_idx,
+                                ds.num_classes, device=DEVICE)
+    best, _ = trainer.run_epochs(1, 1)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.run_epochs(2, 1, best)
+        torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    def self_device_us(ev):  # named self_cuda_time_total before torch 2.4
+        us = getattr(ev, "self_device_time_total", None)
+        return ev.self_cuda_time_total if us is None else us
+
+    # device-side entries only: a kernel launched through ctypes is also
+    # charged to the host-side op around it (e.g. _GATAttention)
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA and self_device_us(ev) > 0]
+    device_ms = sum(self_device_us(ev) for ev in events) / 1e3
+    events.sort(key=lambda ev: -self_device_us(ev))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "teacher_profile.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    print(f"teacher epoch profile: wall {wall_ms:.1f} ms (profiled), device busy "
+          f"{device_ms:.1f} ms ({100 * (1 - device_ms / wall_ms):.1f}% idle)", flush=True)
+    for ev in events[:12]:
+        print(f"  {self_device_us(ev) / 1e3:9.2f} ms  {ev.count:4d}x  {ev.key[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -229,31 +558,39 @@ def main() -> int:
     from efficient_gnns_tpu_torch.data import synthetic_node_dataset
 
     failures = []
+
+    def run(name, phase, *args):
+        """Run one phase; report a raise and go on with the others."""
+        try:
+            return phase(*args)
+        except Exception:  # report, then run the other phases
+            traceback.print_exc()
+            failures.append(f"{name} phase raised")
+            return None
+
     smi = phase_device()
     phase_build()
     t0 = time.time()
     ds = synthetic_node_dataset(num_nodes=169343, num_edges=1166243, seed=42)
     print(f"arxiv-shaped dataset built in {time.time() - t0:.1f} s", flush=True)
-    try:
-        records, k1_failures = phase_k1(ds.graph)
-        failures += k1_failures
-    except Exception:  # report, then run the other phases
-        traceback.print_exc()
-        records, failures = [], failures + ["K1 phase raised"]
-    del ds
-    try:
-        if not phase_reference():
-            failures.append("cuda trainer disagrees with the cpu trainer")
-    except Exception:
-        traceback.print_exc()
-        failures.append("reference phase raised")
-    launches, slice_failures = phase_slice()
-    failures += slice_failures
+    records = []
+    for name, phase in (("K1", phase_k1), ("attention kernels", phase_attention_kernels)):
+        recs, fails = run(name, phase, ds.graph) or ([], [])
+        records, failures = records + recs, failures + fails
+    if run("reference", phase_reference) is False:
+        failures.append("cuda trainer disagrees with the cpu trainer")
+    if run("teacher reference", phase_teacher_reference) is False:
+        failures.append("cuda teacher trainer disagrees with the cpu trainer")
+    k1_launches, slice_failures = run("slice", phase_slice) or (0, [])
+    launches, teacher_failures = run("teacher slice", phase_teacher_slice) or ({}, [])
+    failures += slice_failures + teacher_failures
+    run("teacher profile", phase_teacher_profile, ds)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
+    launches["K1"] = k1_launches + launches.get("K1", 0)
     for r in records:
-        r["launches"] = launches
+        r["launches"] = launches[r["name"].split()[0]]
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ command writes ``<out_dir>/<expt_name>-<gnn>-<mode>.json`` (args, per-run
 statistics, across-run statistics).
 
 Ported so far: ``--gnn gcn`` with ``--training supervised|kd`` on
-``--dataset synthetic``, the oracle teacher standing in for teacher dumps.
+``--dataset synthetic``. ``kd`` reads the teacher's logits from the per-seed
+``.npz`` dumps in ``--teacher_dir`` (``distill/artifacts.py``, written by
+either package's teacher CLI), or uses the oracle teacher without one.
 Every other choice raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -98,9 +100,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--gnn sage (SAGEConv, spmm_mean) is not ported yet "
             "(ROADMAP.md Queue 1 items 2 and 4)")
-    if args.teacher_dir:
-        raise NotImplementedError(
-            "teacher .npz dumps are not ported yet (ROADMAP.md Queue 1 item 5)")
     if args.checkpoint_every or args.resume:
         raise NotImplementedError(
             "checkpoints are not ported yet (ROADMAP.md Queue 1 item 6)")
@@ -131,6 +130,7 @@ def main(argv=None) -> dict:
     _refuse_unported(args)
     import torch
 
+    from efficient_gnns_tpu_torch.distill import load_teacher_dump
     from efficient_gnns_tpu_torch.models import GCN
     from efficient_gnns_tpu_torch.train import (
         DistillConfig,
@@ -167,14 +167,17 @@ def main(argv=None) -> dict:
         f"device={device_name}"
     )
     graph = ds.graph.to(device)  # once, shared by every run
-    teacher_logits = (oracle_teacher_logits(ds.y, ds.num_classes)
-                      if cfg.needs_teacher() else None)
 
     logger = Logger(args.runs)
     results = []
     mode = args.training
     for run in range(args.runs):
         seed = args.seed + run
+        teacher_logits = None
+        if cfg.needs_teacher() and args.teacher_dir:
+            teacher_logits = load_teacher_dump(args.teacher_dir, seed)[1]
+        elif cfg.needs_teacher():
+            teacher_logits = oracle_teacher_logits(ds.y, ds.num_classes)
         model = GCN(
             ds.x.shape[1], cfg.hidden, ds.num_classes, cfg.num_layers,
             dropout=cfg.dropout, seed=seed, device=device,

@@ -65,6 +65,19 @@ class Graph:
     def device(self) -> torch.device:
         return self.senders.device
 
+    @property
+    def edge_mask(self) -> torch.Tensor:
+        """bool[E_pad]: True for real edges (receiver in range)."""
+        return self.receivers < self.num_nodes
+
+    def in_degrees(self) -> torch.Tensor:
+        """float32[num_nodes] number of real edges into each node."""
+        return (self.row_offsets[1:] - self.row_offsets[:-1]).float()
+
+    def out_degrees(self) -> torch.Tensor:
+        """float32[num_nodes] number of real edges out of each node."""
+        return (self.t_row_offsets[1:] - self.t_row_offsets[:-1]).float()
+
     def to(self, device) -> "Graph":
         """A copy with every tensor on ``device``."""
         return dataclasses.replace(

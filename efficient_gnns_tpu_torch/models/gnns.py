@@ -1,5 +1,5 @@
 """The GNN model zoo (counterpart of ``efficient_gnns_tpu/models/gnns.py``;
-the GCN student so far).
+the GCN student and the GAT teacher so far).
 
 Every model's ``forward`` returns ``(logits, out_feat)``, ``out_feat`` being
 the representation used by feature-space distillation. Train or eval mode is
@@ -15,7 +15,13 @@ import torch
 from torch import nn
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
-from efficient_gnns_tpu_torch.models.layers import GCNConv, MaskedBatchNorm, dropout
+from efficient_gnns_tpu_torch.models.layers import (
+    DGLGATConv,
+    ElementWiseLinear,
+    GCNConv,
+    MaskedBatchNorm,
+    dropout,
+)
 
 
 class GCN(nn.Module):
@@ -49,3 +55,56 @@ class GCN(nn.Module):
                 h = dropout(h, self.dropout, generator)
         out_feat = h
         return self.convs[-1](graph, h), out_feat
+
+
+class GATTeacher(nn.Module):
+    """The ogbn-arxiv GAT teacher (reference ``arxiv_dgl/models.py:239-313``):
+    ``num_layers`` :class:`DGLGATConv` (residual, optional symmetric norm),
+    head-flatten + BatchNorm + ReLU + dropout between layers, a single-head
+    last layer, head mean and a bias-only :class:`ElementWiseLinear`.
+    ``out_feat`` is the flattened activation after the penultimate layer
+    (``hidden * num_heads`` wide: the 750-d teacher dump feature).
+
+    Weights are initialized from ``torch.Generator().manual_seed(seed)`` on
+    the CPU, then moved to ``device``.
+    """
+
+    def __init__(self, in_feats: int, hidden: int, out_feats: int,
+                 num_layers: int = 3, num_heads: int = 3, dropout: float = 0.75,
+                 input_drop: float = 0.0, attn_drop: float = 0.0,
+                 edge_drop: float = 0.0, use_attn_dst: bool = True,
+                 use_symmetric_norm: bool = False, *, seed: int = 0, device="cuda"):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        convs = []
+        for i in range(num_layers):
+            last = i == num_layers - 1
+            convs.append(DGLGATConv(
+                in_feats if i == 0 else hidden * num_heads,
+                out_feats if last else hidden,
+                num_heads=1 if last else num_heads,
+                attn_drop=attn_drop, edge_drop=edge_drop,
+                use_attn_dst=use_attn_dst, residual=True,
+                use_symmetric_norm=use_symmetric_norm,
+                generator=gen, device=device,
+            ))
+        self.convs = nn.ModuleList(convs)
+        self.bns = nn.ModuleList(
+            MaskedBatchNorm(hidden * num_heads, device=device)
+            for _ in range(num_layers - 1)
+        )
+        self.bias_last = ElementWiseLinear(out_feats, use_weight=False, device=device)
+        self.dropout, self.input_drop = dropout, input_drop
+
+    def forward(self, graph: Graph, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        h = dropout(x, self.input_drop, generator) if self.training else x
+        out_feat = None
+        for conv, bn in zip(self.convs[:-1], self.bns):
+            h = conv(graph, h, generator).flatten(1)
+            h = torch.relu(bn(h, graph.node_mask))
+            if self.training:
+                h = dropout(h, self.dropout, generator)
+            out_feat = h
+        h = self.convs[-1](graph, h, generator).mean(1)
+        return self.bias_last(h), out_feat

@@ -1,5 +1,6 @@
 """Graph convolution layers (counterpart of
-``efficient_gnns_tpu/models/layers.py``; ``GCNConv`` and ``MaskedBatchNorm``).
+``efficient_gnns_tpu/models/layers.py``; ``GCNConv``, ``MaskedBatchNorm``,
+``DGLGATConv`` and ``ElementWiseLinear``).
 
 Parameters are created on the CPU and initialized from an explicit
 ``torch.Generator``, then moved to ``device``, so one seed gives the same
@@ -9,6 +10,7 @@ initial weights on every device. A dense kernel keeps the flax layout
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -16,6 +18,7 @@ from torch import nn
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.ops import spmm
+from efficient_gnns_tpu_torch.ops.attention import gat_attention, sample_edge_masks
 
 
 class MaskedBatchNorm(nn.Module):
@@ -88,3 +91,99 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
         return torch.zeros_like(x)
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def relu_gain_xavier_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """flax ``variance_scaling(2.0, "fan_avg", "truncated_normal")`` for a
+    2-D ``[fan_in, fan_out]`` shape: a normal truncated at two standard
+    deviations, scaled so the variance is ``2 / fan_avg`` (the reference's
+    xavier-normal init with the ReLU gain)."""
+    fan_avg = (shape[0] + shape[1]) / 2.0
+    std = math.sqrt(2.0 / fan_avg) / 0.87962566103423978  # truncation correction
+    out = torch.empty(shape)
+    nn.init.trunc_normal_(out, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    return out
+
+
+class DGLGATConv(nn.Module):
+    """The reference's DGL GAT convolution (``arxiv_dgl/models.py:95-236``):
+    LeakyReLU(0.2) attention with
+    separate ``attn_l`` / ``attn_r`` score vectors and the attn-dst switch,
+    symmetric-norm pre/post scaling (``deg_out^-1/2`` on the source features,
+    ``deg_in^1/2`` on the output), edge-drop before the softmax
+    normalisation, attention dropout, and a residual no-bias linear.
+
+    The attention runs on :func:`~efficient_gnns_tpu_torch.ops.attention.
+    gat_attention` for every graph: the JAX layer's hub-dense branch (taken
+    without attn-dst on hub graphs) is not ported, and without attn-dst the
+    port computes the function of the JAX layer on graphs without a hub
+    split. Dense kernels keep the flax layout ``[in, out]``: ``fc_weight`` is
+    flax ``Dense_0``, ``res_weight`` ``Dense_1``.
+    """
+
+    def __init__(self, in_feats: int, out_feats: int, num_heads: int = 1,
+                 feat_drop: float = 0.0, attn_drop: float = 0.0,
+                 edge_drop: float = 0.0, use_attn_dst: bool = True, residual: bool = False,
+                 use_symmetric_norm: bool = False, *,
+                 generator: torch.Generator, device="cuda"):
+        super().__init__()
+        h, d = num_heads, out_feats
+        self.num_heads, self.out_feats = h, d
+        self.feat_drop, self.attn_drop, self.edge_drop = feat_drop, attn_drop, edge_drop
+        self.use_symmetric_norm = use_symmetric_norm
+
+        def param(shape):
+            return nn.Parameter(relu_gain_xavier_normal(shape, generator).to(device))
+
+        self.fc_weight = param((in_feats, h * d))
+        self.attn_l = param((d, h))
+        self.attn_r = param((d, h)) if use_attn_dst else None
+        self.res_weight = param((in_feats, h * d)) if residual else None
+
+    def forward(self, graph: Graph, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h, d = self.num_heads, self.out_feats
+        if self.training:
+            x = dropout(x, self.feat_drop, generator)
+        feat = (x @ self.fc_weight).view(-1, h, d)
+        feat_src = feat
+        if self.use_symmetric_norm:
+            degs = graph.out_degrees().clamp_min(1.0)
+            feat_src = feat_src * torch.rsqrt(degs)[:, None, None].to(feat.dtype)
+        el = torch.einsum("nhd,dh->nh", feat_src.float(), self.attn_l)
+        er = None
+        if self.attn_r is not None:
+            er = torch.einsum("nhd,dh->nh", feat.float(), self.attn_r)
+        keep = attn = None
+        if self.training and (self.edge_drop > 0 or self.attn_drop > 0):
+            keep, attn = sample_edge_masks(graph, generator, self.edge_drop,
+                                           self.attn_drop, h)
+        rst = gat_attention(graph, feat_src, el, er,
+                            negative_slope=0.2, keep_mask=keep,
+                            attn_keep=attn, attn_keep_prob=1.0 - self.attn_drop)
+        if self.use_symmetric_norm:
+            degs = graph.in_degrees().clamp_min(1.0)
+            rst = rst * torch.sqrt(degs)[:, None, None].to(rst.dtype)
+        if self.res_weight is not None:
+            rst = rst + (x @ self.res_weight).view(-1, h, d)
+        return rst  # [N, H, D]
+
+
+class ElementWiseLinear(nn.Module):
+    """Per-feature affine (``arxiv_dgl/models.py:11-43``); the GAT teacher's
+    final bias layer has ``use_weight=False``."""
+
+    def __init__(self, features: int, use_weight: bool = True, use_bias: bool = True,
+                 *, device="cuda"):
+        super().__init__()
+        self.weight = (nn.Parameter(torch.ones(features, device=device))
+                       if use_weight else None)
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight is not None:
+            x = x * self.weight.to(x.dtype)
+        if self.bias is not None:
+            x = x + self.bias.to(x.dtype)
+        return x

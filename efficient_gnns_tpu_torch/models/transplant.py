@@ -4,8 +4,9 @@
 nested dicts of NumPy arrays (e.g. ``jax.tree.map(np.asarray, params)``,
 converted by the caller) and returns a ``state_dict`` for the port's model.
 A flax ``Dense`` kernel is ``[in, out]``; the port keeps that layout (its
-``GCNConv.weight`` is applied as ``x @ weight``), so kernels are copied, not
-transposed.
+``GCNConv.weight`` and ``DGLGATConv.fc_weight`` / ``res_weight`` are applied
+as ``x @ weight``), so kernels are copied, not transposed; ``attn_l`` /
+``attn_r`` keep their ``[D, H]`` layout too.
 """
 
 from __future__ import annotations
@@ -17,8 +18,15 @@ import numpy as np
 import torch
 
 _PARAM_RULES = (
+    # GCN
     (re.compile(r"conv_(\d+)/Dense_0/kernel"), "convs.{}.weight"),
     (re.compile(r"conv_(\d+)/bias"), "convs.{}.bias"),
+    # GATTeacher
+    (re.compile(r"gat_(\d+)/Dense_0/kernel"), "convs.{}.fc_weight"),
+    (re.compile(r"gat_(\d+)/Dense_1/kernel"), "convs.{}.res_weight"),
+    (re.compile(r"gat_(\d+)/attn_([lr])"), "convs.{}.attn_{}"),
+    (re.compile(r"bias_last/bias"), "bias_last.bias"),
+    # both
     (re.compile(r"bn_(\d+)/scale"), "bns.{}.scale"),
     (re.compile(r"bn_(\d+)/bias"), "bns.{}.bias"),
 )
@@ -45,7 +53,7 @@ def _rename(flat: Dict[str, np.ndarray], rules) -> Dict[str, torch.Tensor]:
         for pattern, template in rules:
             m = pattern.fullmatch(key)
             if m:
-                out[template.format(m.group(1))] = torch.from_numpy(
+                out[template.format(*m.groups())] = torch.from_numpy(
                     np.array(value, dtype=np.float32)
                 )
                 break
@@ -55,8 +63,9 @@ def _rename(flat: Dict[str, np.ndarray], rules) -> Dict[str, torch.Tensor]:
 
 
 def from_jax_params(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """``state_dict`` for :class:`~efficient_gnns_tpu_torch.models.GCN` from
-    the JAX ``GCN``'s ``params`` and ``batch_stats``."""
+    """``state_dict`` for the port's :class:`~efficient_gnns_tpu_torch.models.GCN`
+    or :class:`~efficient_gnns_tpu_torch.models.GATTeacher` from the JAX
+    model's ``params`` and ``batch_stats``."""
     state = _rename(_flatten(params), _PARAM_RULES)
     state.update(_rename(_flatten(batch_stats), _STAT_RULES))
     return state

@@ -21,7 +21,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "_build",
 )
-SOURCES = ("segment_sum",)
+SOURCES = ("segment_sum", "segment_heads", "segment_thin")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -87,3 +87,11 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _loaded[name] = ctypes.CDLL(path)
     return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise if a library's launch returned a CUDA error code (its
+    ``cudaGetLastError()``); a refused launch never runs, and no later
+    synchronisation reports it."""
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {lib.egt_cuda_error_string(rc).decode()}")

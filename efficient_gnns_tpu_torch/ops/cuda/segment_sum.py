@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from efficient_gnns_tpu_torch.ops.cuda import build
-from efficient_gnns_tpu_torch.ops.segment import gather, segment_sum
+from efficient_gnns_tpu_torch.ops.segment import csr_row_ids, gather, segment_sum
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements in one 16-byte load
@@ -70,10 +70,7 @@ def csr_segment_sum_plain(
     Runs on any device (it is also the kernel's reference on the card)."""
     num_rows = row_offsets.numel() - 1
     e = int(row_offsets[-1])
-    deg = (row_offsets[1:] - row_offsets[:-1]).long()
-    rows = torch.repeat_interleave(
-        torch.arange(num_rows, device=x.device), deg, output_size=e
-    )
+    rows = csr_row_ids(row_offsets, e)
     msgs = gather(x, src[:e]).float()
     if w is not None:
         msgs = msgs * w[:e, None]
@@ -111,10 +108,7 @@ def csr_segment_sum(
         out.data_ptr(), num_rows, f,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"csr_segment_sum launch failed: {lib.egt_cuda_error_string(rc).decode()}"
-        )
+    build.raise_on_error(lib, rc, "csr_segment_sum")
     csr_segment_sum.launches += 1
     return out
 

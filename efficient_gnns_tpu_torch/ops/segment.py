@@ -1,4 +1,4 @@
-"""Row gather and sorted segment sum in plain PyTorch (counterpart of
+"""Row gather and sorted segment reductions in plain PyTorch (counterpart of
 ``efficient_gnns_tpu/ops/segment.py``; the plain versions behind the kernels).
 
 Padding convention as in the JAX package: segment ids ``>= num_segments``
@@ -7,12 +7,22 @@ are dropped, and gather indices are clipped into range.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
 def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row gather with clipped out-of-range indices (padding-safe)."""
     return x.index_select(0, idx.long().clamp(0, x.shape[0] - 1))
+
+
+def csr_row_ids(row_offsets: torch.Tensor, num_edges: int) -> torch.Tensor:
+    """int64[num_edges]: the row of each of the first ``num_edges`` CSR edges."""
+    deg = (row_offsets[1:] - row_offsets[:-1]).long()
+    return torch.repeat_interleave(
+        torch.arange(deg.numel(), device=row_offsets.device), deg, output_size=num_edges
+    )
 
 
 def segment_sum(
@@ -24,3 +34,42 @@ def segment_sum(
     keep = ids < num_segments
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
     return out.index_add_(0, ids[keep], data[keep])
+
+
+def segment_max(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """``out[k] = max of data[i] with segment_ids[i] == k``; ids out of range
+    are dropped and empty segments give ``-inf`` (as ``jax.ops.segment_max``)."""
+    ids = segment_ids.long()
+    keep = ids < num_segments
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), float("-inf"))
+    idx = ids[keep].reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data[keep])
+    return out.scatter_reduce_(0, idx, data[keep], reduce="amax", include_self=True)
+
+
+def segment_softmax(
+    logits: torch.Tensor,
+    segment_ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Numerically stable softmax within each segment. Entries with
+    out-of-range ids or ``mask == False`` get probability 0 and no gradient;
+    the segment maximum is a constant shift (no gradient), so the backward is
+    the softmax VJP ``p * (g - sum_seg(p * g))`` of the JAX custom VJP."""
+    lowest = torch.finfo(logits.dtype).min
+    valid = segment_ids.long() < num_segments
+    valid = valid.reshape(valid.shape + (1,) * (logits.dim() - 1))
+    if mask is not None:
+        valid = valid & mask
+    valid = valid.expand_as(logits)
+    with torch.no_grad():
+        seg_max = segment_max(
+            torch.where(valid, logits, float("-inf")), segment_ids, num_segments
+        ).clamp_min(lowest)  # empty segments
+    shifted = torch.where(valid, logits - gather(seg_max, segment_ids), 0.0)
+    z = torch.where(valid, torch.exp(shifted), 0.0)
+    denom = segment_sum(z, segment_ids, num_segments).clamp_min(
+        torch.finfo(logits.dtype).tiny)
+    return z / gather(denom, segment_ids)

@@ -1,11 +1,18 @@
 """Sparse x dense products over :class:`Graph` adjacency (counterpart of
-``efficient_gnns_tpu/ops/spmm.py``, static-weight and unweighted cases).
+``efficient_gnns_tpu/ops/spmm.py``: the static-weight and unweighted
+``spmm``, and the multi-head ``spmm_heads`` with per-call head weights).
 
-The forward is K1 (``ops/cuda/segment_sum.py``) over the receiver-sorted
-CSR; the gradient with respect to ``x`` is K1 over the transpose CSR with the
-transpose-ordered weights, mirroring ``_spmm_blocked_static_bwd``. Messages
-are read in ``dispatch.message_dtype()``; accumulation is float32 and the
-result takes ``x``'s dtype, as in the JAX blocked path.
+``spmm``'s forward is K1 (``ops/cuda/segment_sum.py``) over the
+receiver-sorted CSR; the gradient with respect to ``x`` is K1 over the
+transpose CSR with the transpose-ordered weights, mirroring
+``_spmm_blocked_static_bwd``. Messages are read in
+``dispatch.message_dtype()``; accumulation is float32 and the result takes
+``x``'s dtype, as in the JAX blocked path.
+
+``spmm_heads`` mirrors ``_spmm_heads_blocked``: the forward is K2
+(``ops/cuda/segment_heads.py``) over the CSR, ``dx`` is K2 over the
+transpose CSR with the weights permuted by ``csc_perm``, and ``dw`` is K4.
+It reads float32 messages only.
 """
 
 from __future__ import annotations
@@ -16,7 +23,11 @@ import torch
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.ops import dispatch
-from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
+from efficient_gnns_tpu_torch.ops.cuda import (
+    csr_sddmm_heads,
+    csr_segment_sum,
+    csr_segment_sum_heads,
+)
 
 
 def _aggregate(values, senders, row_offsets, weight, msg_dtype, out_dtype):
@@ -71,3 +82,62 @@ def spmm(
     if transpose:
         graph = graph.transpose()
     return _SpMMStatic.apply(x, graph, dispatch.message_dtype())
+
+
+def require_float32_messages(op: str) -> None:
+    """The multi-head kernels (K2, K4) read float32 messages only."""
+    if dispatch.message_dtype() != torch.float32:
+        raise NotImplementedError(
+            f"{op} with {dispatch.message_dtype()} messages is not ported yet: "
+            "K2/K4 read float32 (ROADMAP.md, Queue 2)"
+        )
+
+
+class _SpMMHeads(torch.autograd.Function):
+    """``out[r, h] = sum_e w[e, h] * x[s_e, h]`` with trainable ``w``."""
+
+    @staticmethod
+    def forward(ctx, x, w, graph: Graph):
+        n, h, d = x.shape
+        xf = x.reshape(n, h * d).float().contiguous()
+        wf = w.float().contiguous()
+        ctx.save_for_backward(xf, wf)
+        ctx.graph, ctx.x_dtype, ctx.w_dtype = graph, x.dtype, w.dtype
+        out = csr_segment_sum_heads(xf, wf, graph.senders, graph.row_offsets)
+        return out.view(n, h, d).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xf, wf = ctx.saved_tensors
+        graph = ctx.graph
+        n, h = xf.shape[0], wf.shape[1]
+        gf = g.reshape(n, -1).float().contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w_t = wf[graph.csc_perm.long()].contiguous()
+            dx = csr_segment_sum_heads(gf, w_t, graph.t_senders, graph.t_row_offsets)
+            dx = dx.view(n, h, -1).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            dw = csr_sddmm_heads(gf, xf, graph.senders, graph.receivers,
+                                 graph.row_offsets, h).to(ctx.w_dtype)
+        return dx, dw, None
+
+
+def spmm_heads(graph: Graph, x: torch.Tensor, edge_weight: torch.Tensor) -> torch.Tensor:
+    """Multi-head weighted SpMM: ``out[r, h] = sum_e w[e, h] * x[s_e, h]``.
+
+    Args:
+      graph: the adjacency (its own ``edge_weight`` is not used).
+      x: float32[num_nodes, H, D] node features on the graph's device.
+      edge_weight: float[E_pad, H] per-edge head weights in CSR order
+        (trainable: its gradient is K4's per-edge head dots).
+    """
+    require_float32_messages("spmm_heads")
+    if (x.dim() != 3 or x.shape[0] != graph.num_nodes
+            or tuple(edge_weight.shape) != (graph.num_edges_padded, x.shape[1])):
+        raise ValueError(
+            f"spmm_heads: x must be [num_nodes={graph.num_nodes}, H, D] and "
+            f"edge_weight [E_pad={graph.num_edges_padded}, H], got "
+            f"{tuple(x.shape)} and {tuple(edge_weight.shape)}"
+        )
+    return _SpMMHeads.apply(x, edge_weight, graph)

@@ -1,0 +1,355 @@
+"""Port vs JAX: the kernels of the GAT attention path (K2, K4-K7), ``spmm_heads``
+and ``gat_attention``.
+
+The JAX side runs its Pallas functions in interpret mode over an edge-blocked
+graph; the port runs each kernel's plain version, which is what its wrapper
+takes for CPU tensors. Both compute the same function over the same edges,
+mapped between the blocked slot order and the CSR order with the blocking's
+``csr_perm`` / ``edge_id`` (slot -> CSR edge) and ``inv_perm`` (CSR edge ->
+slot). The graph has multi-edges, rows without in-edges, nodes without
+out-edges, one receiver and one sender of high degree, and padding edges.
+
+Tolerances (float32): the max (K6) and the row broadcast (K7) are exact; the
+sums (K2, K4, K5) agree to rtol 1e-5 / atol 1e-5, because the summation order
+differs (a one-hot matmul over edge blocks against ``index_add_`` in edge
+order). ``gat_attention`` is held to rtol 2e-5 / atol 2e-6 forward and
+rtol 1e-4 / atol 2e-5 on its gradients, ten times tighter than the JAX
+package's own fused-vs-XLA bounds (2e-4 / 2e-5 and 2e-3 / 2e-4): over these
+inputs and two more seeds, with every mask combination, the largest absolute
+differences were 7.2e-7 (forward), 6.7e-6 (dfeat), 1.2e-6 (del) and 5.5e-7
+(der). The gradients keep the wider bound because the softmax backward
+``a * (da - sum a * da)`` cancels.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from efficient_gnns_tpu import ops as jax_ops
+from efficient_gnns_tpu.graphs import build_graph as jax_build_graph
+from efficient_gnns_tpu.graphs.blocking import attach_blocking
+from efficient_gnns_tpu.ops import dispatch as jax_dispatch
+from efficient_gnns_tpu.ops.attention import gat_attention as jax_gat_attention
+from efficient_gnns_tpu.ops.pallas import (
+    blocked_sddmm_dw_heads,
+    blocked_segment_max_thin,
+    blocked_segment_sum_heads,
+    blocked_segment_sum_thin,
+    tile_rows_thin,
+)
+from efficient_gnns_tpu_torch.graphs import build_graph
+from efficient_gnns_tpu_torch.ops import dispatch, edge_softmax, sddmm_add, spmm_heads
+from efficient_gnns_tpu_torch.ops.attention import gat_attention, sample_edge_masks
+from efficient_gnns_tpu_torch.ops.cuda import (
+    csr_sddmm_heads,
+    csr_sddmm_heads_plain,
+    csr_segment_max_thin,
+    csr_segment_reduce_thin_plain,
+    csr_segment_sum_heads,
+    csr_segment_sum_heads_plain,
+    csr_segment_sum_thin,
+    csr_tile_rows_thin,
+    csr_tile_rows_thin_plain,
+)
+
+N, H, D = 70, 3, 5
+F32_LOWEST = np.finfo(np.float32).min
+
+
+@pytest.fixture(autouse=True)
+def _pallas_interpret():
+    jax_dispatch.set_backend("pallas", interpret=True)
+    yield
+    jax_dispatch.set_backend("auto", interpret=False, message_dtype=jnp.float32)
+    dispatch.set_message_dtype(torch.float32)
+
+
+def _edges(rng, e=310):
+    s = rng.integers(5, N, size=e)  # nodes 0-4 send nothing
+    r = rng.integers(0, N - 10, size=e)  # nodes 60-69 receive nothing
+    r[: e // 4] = 3  # a receiver of high degree
+    s[e // 4: e // 2] = 11  # a sender of high degree
+    s[e // 2: e // 2 + 20] = s[e // 2 + 20: e // 2 + 40]  # multi-edges
+    r[e // 2: e // 2 + 20] = r[e // 2 + 20: e // 2 + 40]
+    return s, r
+
+
+@pytest.fixture
+def graphs(rng):
+    s, r = _edges(rng)
+    jg = attach_blocking(jax_build_graph(s, r, N, edge_pad_multiple=64), tm=32, eb=16)
+    tg = build_graph(s, r, N, edge_pad_multiple=64)
+    assert tg.n_edge < tg.num_edges_padded  # padding edges present
+    np.testing.assert_array_equal(tg.senders.numpy(), np.asarray(jg.senders))
+    return jg, tg
+
+
+def _slot_to_csr(blk):
+    return np.asarray(blk.csr_perm if blk.csr_perm is not None else blk.edge_id)
+
+
+def _to_blocked(csr_vals, blk):
+    """Per-edge CSR values into the blocking's slot order."""
+    idx = np.minimum(_slot_to_csr(blk), csr_vals.shape[0] - 1)
+    return jnp.asarray(csr_vals[idx])
+
+
+def _to_csr(blocked_vals, blk, tg):
+    """Per-slot values back to CSR order (padding edges 0)."""
+    out = np.zeros((tg.num_edges_padded,) + blocked_vals.shape[1:], np.float32)
+    e = tg.n_edge
+    out[:e] = np.asarray(blocked_vals)[np.asarray(blk.inv_perm)[:e]]
+    return out
+
+
+def _pad_heads(x):
+    """[rows, H*D] -> [rows, H*128], each head slice 128-aligned (the TPU
+    kernels' layout)."""
+    x3 = x.reshape(x.shape[0], H, D)
+    return jnp.asarray(np.pad(x3, ((0, 0), (0, 0), (0, 128 - D))).reshape(x.shape[0], -1))
+
+
+def _unpad_heads(x):
+    return np.asarray(x).reshape(x.shape[0], H, 128)[:, :, :D].reshape(x.shape[0], -1)
+
+
+def _directions(jg, tg):
+    """(JAX blocking, port senders, receivers, row offsets, CSR->this-order
+    edge permutation) of the forward and the transpose direction."""
+    perm = tg.csc_perm.numpy()
+    return [
+        (jg.blocking, tg.senders, tg.receivers, tg.row_offsets, np.arange(len(perm))),
+        (jg.t_blocking, tg.t_senders, tg.t_receivers, tg.t_row_offsets, perm),
+    ]
+
+
+@pytest.mark.parametrize("direction", [0, 1])
+def test_thin_segment_sum_and_max_match_pallas(rng, graphs, direction):
+    jg, tg = graphs
+    blk, _, _, ro, perm = _directions(jg, tg)[direction]
+    v_csr = rng.normal(size=(tg.num_edges_padded, H)).astype(np.float32)
+    v_blk = _to_blocked(v_csr, blk)
+    v = torch.from_numpy(v_csr[perm])
+    want_sum = np.asarray(blocked_segment_sum_thin(v_blk, blk, N, interpret=True))
+    want_max = np.asarray(blocked_segment_max_thin(v_blk, blk, N, interpret=True))
+    got_sum = csr_segment_sum_thin(v, ro).numpy()
+    got_max = csr_segment_max_thin(v, ro).numpy()
+    np.testing.assert_allclose(got_sum, want_sum, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got_max, want_max)
+    deg = np.diff(ro.numpy())
+    assert (deg == 0).any() and deg.max() >= 70
+    assert (got_max[deg == 0] == F32_LOWEST).all() and (got_sum[deg == 0] == 0).all()
+
+
+def test_tile_rows_thin_matches_pallas(rng, graphs):
+    jg, tg = graphs
+    blk = jg.blocking
+    vals = rng.normal(size=(N, H)).astype(np.float32)
+    padded = np.zeros((blk.num_tiles * blk.tm, H), np.float32)
+    padded[:N] = vals
+    want = _to_csr(tile_rows_thin(jnp.asarray(padded), blk, interpret=True), blk, tg)
+    got = csr_tile_rows_thin(torch.from_numpy(vals), tg.receivers, tg.row_offsets)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got[tg.n_edge:] == 0).all()
+
+
+@pytest.mark.parametrize("direction", [0, 1])
+def test_segment_sum_heads_matches_pallas(rng, graphs, direction):
+    jg, tg = graphs
+    blk, src, _, ro, perm = _directions(jg, tg)[direction]
+    x = rng.normal(size=(N, H * D)).astype(np.float32)
+    w_csr = rng.normal(size=(tg.num_edges_padded, H)).astype(np.float32)
+    x_blk = _pad_heads(x)[np.asarray(blk.src)]
+    w3 = jnp.moveaxis(_to_blocked(w_csr, blk).reshape(blk.num_blocks, blk.eb, H), 2, 1)
+    want = _unpad_heads(blocked_segment_sum_heads(x_blk, w3, blk, N, H, interpret=True))
+    got = csr_segment_sum_heads(torch.from_numpy(x), torch.from_numpy(w_csr[perm]), src, ro)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("direction", [0, 1])
+def test_sddmm_heads_matches_pallas(rng, graphs, direction):
+    jg, tg = graphs
+    blk, src, dst, ro, perm = _directions(jg, tg)[direction]
+    g = rng.normal(size=(N, H * D)).astype(np.float32)
+    x = rng.normal(size=(N, H * D)).astype(np.float32)
+    gt = jnp.zeros((blk.num_tiles * blk.tm, H * 128)).at[:N].set(_pad_heads(g))
+    x_blk = _pad_heads(x)[np.asarray(blk.src)]
+    # both blockings' slots map to forward CSR edge ids: compare there
+    want = _to_csr(blocked_sddmm_dw_heads(gt, x_blk, blk, H, interpret=True), blk, tg)
+    got = csr_sddmm_heads(torch.from_numpy(g), torch.from_numpy(x), src, dst, ro, H)
+    got_csr = np.zeros_like(want)
+    got_csr[perm[: tg.n_edge]] = got.numpy()[: tg.n_edge]
+    np.testing.assert_allclose(got_csr, want, rtol=1e-5, atol=1e-5)
+    assert (got[tg.n_edge:] == 0).all()
+
+
+def _linear_loss_grads(jfn, tfn, args, cot):
+    """Forward values and gradients of ``sum(f(*args) * cot)`` on both sides."""
+    jargs = [jnp.asarray(a) for a in args]
+    jout = jfn(*jargs)
+    jgrads = jax.grad(lambda *a: jnp.sum(jfn(*a) * cot), argnums=tuple(range(len(args))))(*jargs)
+    targs = [torch.tensor(a, requires_grad=True) for a in args]
+    tout = tfn(*targs)
+    (tout * torch.from_numpy(cot)).sum().backward()
+    return ((np.asarray(jout), [np.asarray(g) for g in jgrads]),
+            (tout.detach().numpy(), [t.grad.numpy() for t in targs]))
+
+
+def test_spmm_heads_matches_jax(rng, graphs):
+    jg, tg = graphs
+    x = rng.normal(size=(N, H, D)).astype(np.float32)
+    w = rng.normal(size=(tg.num_edges_padded, H)).astype(np.float32)
+    w[tg.n_edge:] = 0.0
+    cot = rng.normal(size=(N, H, D)).astype(np.float32)
+    (jo, jgr), (to, tgr) = _linear_loss_grads(
+        lambda x_, w_: jax_ops.spmm_heads(jg, x_, w_),
+        lambda x_, w_: spmm_heads(tg, x_, w_), (x, w), cot)
+    np.testing.assert_allclose(to, jo, rtol=1e-5, atol=1e-5)
+    for got, want, name in zip(tgr, jgr, ("dx", "dw")):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def _attention_inputs(rng, tg, keep, attn):
+    feat = rng.normal(size=(N, H, D)).astype(np.float32)
+    el = rng.normal(size=(N, H)).astype(np.float32)
+    er = rng.normal(size=(N, H)).astype(np.float32)
+    cot = rng.normal(size=(N, H, D)).astype(np.float32)
+    keep_csr = rng.random(tg.num_edges_padded) < 0.7 if keep else None
+    attn_csr = rng.random((tg.num_edges_padded, H)) < 0.8 if attn else None
+    if keep:  # every edge of one row dropped: its softmax is all-masked
+        keep_csr[tg.row_offsets[5]: tg.row_offsets[6]] = False
+    return feat, el, er, cot, keep_csr, attn_csr
+
+
+@pytest.mark.parametrize("use_er", [True, False])
+@pytest.mark.parametrize("masks", ["none", "keep", "attn", "both"])
+def test_gat_attention_matches_jax(rng, graphs, use_er, masks):
+    jg, tg = graphs
+    blk = jg.blocking
+    feat, el, er, cot, keep_csr, attn_csr = _attention_inputs(
+        rng, tg, masks in ("keep", "both"), masks in ("attn", "both"))
+    jkeep = jattn = None
+    if keep_csr is not None:
+        real_slot = np.asarray(blk.dst_local).reshape(-1) < blk.tm
+        jkeep = _to_blocked(keep_csr, blk) & jnp.asarray(real_slot)
+    if attn_csr is not None:
+        jattn = _to_blocked(attn_csr, blk)
+    tkeep = None if keep_csr is None else torch.from_numpy(keep_csr)
+    tattn = None if attn_csr is None else torch.from_numpy(attn_csr)
+    kw = dict(negative_slope=0.2, attn_keep_prob=0.8)
+    args = (feat, el, er) if use_er else (feat, el)
+    (jo, jgr), (to, tgr) = _linear_loss_grads(
+        lambda f, l, *r: jax_gat_attention(jg, f, l, r[0] if r else None,
+                                           keep_mask=jkeep, attn_keep=jattn, **kw),
+        lambda f, l, *r: gat_attention(tg, f, l, r[0] if r else None,
+                                       keep_mask=tkeep, attn_keep=tattn, **kw),
+        args, cot)
+    assert np.isfinite(to).all()
+    np.testing.assert_allclose(to, jo, rtol=2e-5, atol=2e-6)
+    for got, want, name in zip(tgr, jgr, ("dfeat", "del", "der")):
+        assert np.isfinite(got).all(), name
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5, err_msg=name)
+
+
+def test_gat_attention_matches_unfused_composition(rng, graphs):
+    # the plain path of the JAX layer: sddmm_add -> leaky relu -> edge_softmax
+    # (with edge-drop) -> spmm_heads, in the port's plain ops
+    _, tg = graphs
+    feat, el, er, _, keep_csr, _ = _attention_inputs(rng, tg, True, False)
+    keep = torch.from_numpy(keep_csr)
+    f, l, r = (torch.from_numpy(a) for a in (feat, el, er))
+    a = edge_softmax(tg, torch.nn.functional.leaky_relu(sddmm_add(tg, l, r), 0.2), keep)
+    want = spmm_heads(tg, f, a)
+    got = gat_attention(tg, f, l, r, keep_mask=keep)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_sample_edge_masks_rates():
+    s, r = _edges(np.random.default_rng(1), e=4000)
+    tg = build_graph(s, r, N)
+    gen = torch.Generator().manual_seed(0)
+    keep, attn = sample_edge_masks(tg, gen, edge_drop=0.3, attn_drop=0.1, num_heads=H)
+    assert keep.shape == (tg.num_edges_padded,) and attn.shape == (tg.num_edges_padded, H)
+    assert abs(keep.float().mean().item() - 0.7) < 0.03
+    assert abs(attn.float().mean().item() - 0.9) < 0.02
+    assert sample_edge_masks(tg, gen) == (None, None)
+    again = sample_edge_masks(tg, torch.Generator().manual_seed(0), 0.3, 0.1, H)
+    assert torch.equal(again[0], keep) and torch.equal(again[1], attn)
+
+
+def test_wrappers_check_inputs_and_skip_padding(rng, graphs):
+    _, tg = graphs
+    x = torch.randn(N, H * D)
+    w = torch.randn(tg.num_edges_padded, H)
+    v = torch.randn(tg.num_edges_padded, H)
+    with pytest.raises(ValueError, match="int32"):
+        csr_segment_sum_heads(x, w, tg.senders.long(), tg.row_offsets)
+    with pytest.raises(ValueError, match="float32"):
+        csr_segment_sum_heads(x.double(), w, tg.senders, tg.row_offsets)
+    with pytest.raises(ValueError, match="disagree"):
+        csr_segment_sum_heads(torch.randn(N, H * D - 1), w, tg.senders, tg.row_offsets)
+    with pytest.raises(ValueError, match="contiguous"):
+        csr_sddmm_heads(x, torch.randn(H * D, N).t(), tg.senders, tg.receivers,
+                        tg.row_offsets, H)
+    with pytest.raises(ValueError, match="H <= 8"):
+        csr_segment_sum_thin(torch.randn(tg.num_edges_padded, 9), tg.row_offsets)
+    with pytest.raises(ValueError, match="one row per CSR row"):
+        csr_tile_rows_thin(torch.randn(N + 1, H), tg.receivers, tg.row_offsets)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dispatch.set_message_dtype(torch.bfloat16)
+        spmm_heads(tg, x.view(N, H, D), w)
+    dispatch.set_message_dtype(torch.float32)
+    counters = (csr_segment_sum_heads, csr_sddmm_heads, csr_segment_sum_thin,
+                csr_segment_max_thin, csr_tile_rows_thin)
+    before = [c.launches for c in counters]
+    # out-of-range indices past the real edges must never be read
+    src, dst = tg.senders.clone(), tg.receivers.clone()
+    src[tg.n_edge:] = 10**6
+    dst[tg.n_edge:] = 10**6
+    torch.testing.assert_close(csr_segment_sum_heads(x, w, src, tg.row_offsets),
+                               csr_segment_sum_heads_plain(x, w, tg.senders, tg.row_offsets))
+    torch.testing.assert_close(csr_sddmm_heads(x, x, src, dst, tg.row_offsets, H),
+                               csr_sddmm_heads_plain(x, x, tg.senders, tg.receivers,
+                                                     tg.row_offsets, H))
+    torch.testing.assert_close(csr_tile_rows_thin(v[:N], dst, tg.row_offsets),
+                               csr_tile_rows_thin_plain(v[:N], tg.receivers, tg.row_offsets))
+    v_nan = v.clone()
+    v_nan[tg.n_edge:] = float("nan")
+    for op, fn in (("sum", csr_segment_sum_thin), ("max", csr_segment_max_thin)):
+        torch.testing.assert_close(fn(v_nan, tg.row_offsets),
+                                   csr_segment_reduce_thin_plain(v, tg.row_offsets, op))
+    assert [c.launches for c in counters] == before  # the CPU runs no kernel
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K2/K4-K7 kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,d", [(3, 250), (1, 40), (3, 5)])
+def test_attention_kernels_match_plain_on_card(rng, cuda_device, heads, d):
+    s, r = _edges(rng, e=3000)
+    g = build_graph(s, r, N, edge_pad_multiple=512).to(cuda_device)
+    x = torch.randn(N, heads * d, device=cuda_device)
+    gg = torch.randn(N, heads * d, device=cuda_device)
+    w = torch.randn(g.num_edges_padded, heads, device=cuda_device)
+    vals = torch.randn(N, heads, device=cuda_device)
+    for src, dst, ro in ((g.senders, g.receivers, g.row_offsets),
+                         (g.t_senders, g.t_receivers, g.t_row_offsets)):
+        close = dict(rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(csr_segment_sum_heads(x, w, src, ro),
+                                   csr_segment_sum_heads_plain(x, w, src, ro), **close)
+        torch.testing.assert_close(csr_sddmm_heads(gg, x, src, dst, ro, heads),
+                                   csr_sddmm_heads_plain(gg, x, src, dst, ro, heads), **close)
+        torch.testing.assert_close(csr_segment_sum_thin(w, ro),
+                                   csr_segment_reduce_thin_plain(w, ro, "sum"), **close)
+        assert torch.equal(csr_segment_max_thin(w, ro),
+                           csr_segment_reduce_thin_plain(w, ro, "max"))
+        assert torch.equal(csr_tile_rows_thin(vals, dst, ro),
+                           csr_tile_rows_thin_plain(vals, dst, ro))
+    torch.cuda.synchronize()

@@ -27,8 +27,11 @@ assert not bad, bad
 def test_port_imports_without_jax():
     modules = [m.name for m in pkgutil.walk_packages(
         efficient_gnns_tpu_torch.__path__, "efficient_gnns_tpu_torch.")]
-    assert "efficient_gnns_tpu_torch.cli.arxiv" in modules
-    assert "efficient_gnns_tpu_torch.ops.cuda.segment_sum" in modules
+    for name in ("cli.arxiv", "cli.gat_teacher", "ops.cuda.segment_sum",
+                 "ops.cuda.segment_heads", "ops.cuda.segment_thin", "ops.attention",
+                 "ops.edge_softmax", "ops.sddmm", "train.gat_teacher",
+                 "distill.artifacts"):
+        assert f"efficient_gnns_tpu_torch.{name}" in modules, name
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE, "efficient_gnns_tpu_torch", *modules],
