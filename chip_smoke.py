@@ -10,15 +10,18 @@ it imports nothing of JAX. Phases, each of which must pass:
 2. build: every CUDA source of the port, compiled for ``sm_90a``;
 3. K1 (``csr_segment_sum``) against its plain PyTorch version at the
    ogbn-arxiv shape the student gives it (169,343 nodes, the bidirected
-   self-looped synthetic edge set, F = 256 and 40, float32 and bfloat16,
+   self-looped synthetic edge set, F = 256, 128 and 40, float32 and bfloat16,
    the forward CSR and the transpose CSR of the backward), with its time,
    the plain version's, one library call's (``torch.sparse`` CSR matmul,
    timed only) and its bound;
 4. small-input reference: the student trainer on the card against the same
-   trainer on the CPU (which the tests hold against the JAX package);
+   trainer on the CPU (which the tests hold against the JAX package), for
+   the GCN in ``supervised``, the GCN in ``nce`` composed with logit KD and
+   the SAGE student;
 5. the slice: ``efficient_gnns_tpu_torch.cli.arxiv`` trains the 2 x 256 GCN
-   student at arxiv width in ``supervised`` and ``kd`` mode, with K1's
-   launch counter read around each run;
+   student at arxiv width in ``supervised`` and ``kd`` mode and the 2 x 256
+   SAGE student in ``supervised`` mode, with K1's launch counter read around
+   each run;
 6. K2, K4, K5, K6 and K7 (the GAT attention kernels) against their plain
    versions at the teacher's arxiv shapes (H = 3 heads of D = 250 and the
    last layer's H = 1, D = 40; forward and transpose CSR), with their times,
@@ -29,9 +32,18 @@ it imports nothing of JAX. Phases, each of which must pass:
    the 3 x 3 x 250 GAT teacher at arxiv shape with the flags of
    ``experiments/arxiv_hard.sh`` (attn-dst on) and dumps it, with the five
    kernels' launch counters read around the run; then ``cli.arxiv`` trains
-   the GCN student in ``kd`` mode from that dump;
+   the GCN student from that dump in ``kd``, ``nce`` (MLP projection heads,
+   8192 sampled rows) and ``gcd`` (graph-conditioned heads) mode;
 9. a profile of one teacher epoch at arxiv shape (``torch.profiler``): the
-   device time by kernel, the table written to ``OUT_DIR``.
+   device time by kernel, the table written to ``OUT_DIR``;
+10. K3 (``csr_sddmm``, the weight gradient of ``spmm`` with per-call
+    weights) against its plain version at the arxiv shape, F = 256 and 40,
+    float32 and bfloat16, with its time, the plain version's, one library
+    call's (``torch.sparse.sampled_addmm``, timed only) and its bound;
+11. the runtime-weight path: ``sum(sin(spmm(graph, x, edge_weight=w)))``
+    forward and backward on the card at arxiv shape, F = 256, with K1's and
+    K3's launch counters read around it, ``dx`` and ``dw`` held against the
+    same call on the CPU, and ``weight_grad=False`` (zero ``dw``, no K3).
 
 The last lines are the kernels' JSON record, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before them.
@@ -51,9 +63,19 @@ import traceback
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 TOL = 1e-5  # |kernel - plain| <= TOL + TOL * sum_e |w_e x_e| (summation order)
+RT_TOL = 1e-4  # card vs CPU through sin(): the cotangent carries the forward's rounding
 ARXIV = ["--dataset", "synthetic", "--num_nodes", "169343", "--num_edges",
-         "1166243", "--gnn", "gcn", "--hidden_channels", "256", "--num_layers", "2"]
+         "1166243", "--hidden_channels", "256", "--num_layers", "2"]
+HARD_U = ["--signal", "0.3", "--label_noise", "0.15"]
+# experiments/arxiv_hard.sh step 2, the G-CRD grid point
+NCE = ["--beta", "0.05", "--nce_T", "0.075", "--proj_dim", "256", "--max_samples", "8192"]
 EPOCHS = 10
+# K1 launches of one student epoch (train step + eval), from the code:
+# GCN: 2 forward + 2 backward + 2 eval. SAGE: the first layer aggregates the
+# input features, which take no gradient: 2 + 1 + 2. gcd: the GCN's 6 plus
+# the forward and backward of each projection head's GCNConv.
+K1_PER_EPOCH = {("gcn", "supervised"): 6, ("gcn", "kd"): 6, ("gcn", "nce"): 6,
+                ("sage", "supervised"): 5, ("gcn", "gcd"): 10}
 # experiments/arxiv_hard.sh step 1 at arxiv shape, attn-dst on (the CLI default)
 HARD = ["--num-nodes", "169343", "--num-edges", "1166243", "--signal", "0.3",
         "--label-noise", "0.15"]
@@ -140,7 +162,7 @@ def phase_k1(graph):
           f"mean={e / n:.1f} (drawn by numpy {numpy.__version__})", flush=True)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     records, failures = [], []
-    for f in (256, 40):
+    for f in (256, 128, 40):  # hidden, input features (SAGE's first mean), classes
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(n, f, generator=gen, device=DEVICE).to(dtype)
             for direction, src, ro, w in (
@@ -168,6 +190,7 @@ def phase_k1(graph):
                 flops = 2 * e * f
                 t_bytes = unique_bytes / HBM_BYTES_PER_S * 1e3
                 t_ops = flops / FP32_FLOP_PER_S * 1e3
+                gathered_ms = gathered_bytes / HBM_BYTES_PER_S * 1e3
                 name = f"K1 csr_segment_sum {direction} F={f} {str(dtype)[6:]}"
                 records.append({
                     "name": name,
@@ -181,15 +204,15 @@ def phase_k1(graph):
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                     "library_ms": library_ms,
-                    "gathered_bound_ms": gathered_bytes / HBM_BYTES_PER_S * 1e3,
-                    "on_main_path": dtype == torch.float32,
+                    # the input features carry no gradient: no backward at F=128
+                    "on_main_path": dtype == torch.float32
+                    and not (f == 128 and direction == "bwd"),
                     "shape": {"N": n, "E": e, "F": f},
                 })
                 print(f"  {name}: max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'} "
                       f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms} "
                       f"bound_ms={records[-1]['bound_ms']:.4f} "
-                      f"gathered_bound_ms={records[-1]['gathered_bound_ms']:.4f}",
-                      flush=True)
+                      f"gathered_bound_ms={gathered_ms:.4f}", flush=True)
                 if not ok:
                     failures.append(name)
     # padding edges lie past row_offsets[N]: poisoned, they must change nothing
@@ -204,58 +227,85 @@ def phase_k1(graph):
 
 
 def phase_reference():
-    """The trainer on the card against the CPU trainer, same start, dropout 0."""
+    """The trainer on the card against the CPU trainer, same start, dropout 0:
+    the GCN in ``supervised``, the GCN in ``nce`` composed with logit KD
+    (1,620 train rows, below ``max_samples``: no row sampling, whose draws
+    differ between the devices' generators) and SAGE in ``supervised``."""
     import numpy as np
-    import torch
 
+    from efficient_gnns_tpu_torch.cli.arxiv import (
+        oracle_teacher_features,
+        oracle_teacher_logits,
+    )
     from efficient_gnns_tpu_torch.data import synthetic_node_dataset
-    from efficient_gnns_tpu_torch.models import GCN
+    from efficient_gnns_tpu_torch.models import GCN, SAGE
     from efficient_gnns_tpu_torch.train import DistillConfig, NodeDistillTrainer
 
     ds = synthetic_node_dataset(num_nodes=3000, num_edges=15000, seed=5)
-    hist = {}
-    for device in ("cpu", DEVICE):
-        model = GCN(128, 64, 40, 2, dropout=0.0, seed=0, device=device)
-        trainer = NodeDistillTrainer(
-            model, DistillConfig(hidden=64, dropout=0.0), ds.graph, ds.x, ds.y,
-            ds.split_idx, device=device)
-        hist[device] = trainer.run_epochs(1, 3)
-    err = float(np.abs(hist[DEVICE][:, :3] - hist["cpu"][:, :3]).max())
-    print(f"reference: cuda vs cpu trainer, 3 epochs, loss max_abs_err={err:.3e}",
-          flush=True)
-    return np.allclose(hist[DEVICE][:, :3], hist["cpu"][:, :3], rtol=1e-4, atol=1e-6)
+    teacher = dict(teacher_feat=oracle_teacher_features(ds.y, ds.num_classes),
+                   teacher_logits=oracle_teacher_logits(ds.y, ds.num_classes))
+    ok = True
+    for tag, model_cls, cfg in (
+        ("gcn supervised", GCN, {}),
+        ("gcn nce+kd", GCN, dict(training="nce", kd_and_aux=True, beta=0.05, proj_dim=32)),
+        ("sage supervised", SAGE, {}),
+    ):
+        hist = {}
+        for device in ("cpu", DEVICE):
+            model = model_cls(128, 64, 40, 2, dropout=0.0, seed=0, device=device)
+            trainer = NodeDistillTrainer(
+                model, DistillConfig(hidden=64, dropout=0.0, **cfg), ds.graph, ds.x, ds.y,
+                ds.split_idx, device=device, **(teacher if cfg else {}))
+            hist[device] = trainer.run_epochs(1, 3)
+        got, want = hist[DEVICE][:, :3], hist["cpu"][:, :3]
+        print(f"reference {tag}: cuda vs cpu trainer, 3 epochs, losses "
+              f"{got[:, 0].tolist()} max_abs_err={float(np.abs(got - want).max()):.3e}",
+              flush=True)
+        ok = ok and bool(np.isfinite(got).all()
+                         and np.allclose(got, want, rtol=1e-4, atol=1e-6))
+    return ok
 
 
-def phase_slice():
-    """The port's CLI at arxiv width; returns K1 launches in its runs."""
+def _student(expt, gnn, training, extra=()):
+    """One 10-epoch run of the student CLI at arxiv width with K1's counter
+    read around it; returns (K1 launches, failures)."""
     import math
 
     from efficient_gnns_tpu_torch.cli import arxiv
     from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
 
+    argv = ARXIV + ["--gnn", gnn, "--training", training, *extra,
+                    "--epochs", str(EPOCHS), "--runs", "1", "--log_steps", str(EPOCHS),
+                    "--epoch_chunk", str(EPOCHS), "--device", DEVICE,
+                    "--out_dir", OUT_DIR, "--expt_name", expt]
+    csr_segment_sum.launches = 0
+    summary = arxiv.main(argv)
+    n = csr_segment_sum.launches
+    with open(os.path.join(OUT_DIR, expt, f"{gnn}-{training}", "seed0",
+                           "metrics.jsonl")) as f:
+        losses = [json.loads(line)["loss/train"] for line in f][-EPOCHS:]
+    expected = K1_PER_EPOCH[gnn, training] * EPOCHS
+    tag = f"{expt} {gnn} {training}"
+    print(f"student {tag}: K1 launches={n} (expected {expected}) "
+          f"mean epoch (train step + eval) "
+          f"{summary['runs'][0]['seconds'] / EPOCHS * 1e3:.1f} ms "
+          f"losses {[round(v, 4) for v in losses]}", flush=True)
+    failures = []
+    if n != expected:
+        failures.append(f"{tag}: {n} K1 launches")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        failures.append(f"{tag}: losses not finite and falling")
+    return n, failures
+
+
+def phase_slice():
+    """The port's student CLI at arxiv width with the oracle teacher: the GCN
+    in ``supervised`` and ``kd``, SAGE in ``supervised``. Returns K1's
+    launches in its runs."""
     launches, failures = 0, []
-    for training in ("supervised", "kd"):
-        argv = ARXIV + ["--training", training, "--epochs", str(EPOCHS),
-                        "--runs", "1", "--log_steps", str(EPOCHS), "--epoch_chunk",
-                        str(EPOCHS), "--device", DEVICE, "--out_dir", OUT_DIR,
-                        "--expt_name", "chip_smoke"]
-        csr_segment_sum.launches = 0
-        summary = arxiv.main(argv)
-        n = csr_segment_sum.launches
-        launches += n
-        path = os.path.join(OUT_DIR, "chip_smoke", f"gcn-{training}", "seed0",
-                            "metrics.jsonl")
-        with open(path) as f:
-            records = [json.loads(line) for line in f][-EPOCHS:]
-        losses = [r["loss/train"] for r in records]
-        step_s = summary["runs"][0]["seconds"] / EPOCHS
-        print(f"slice {training}: K1 launches={n} (expected {6 * EPOCHS}) "
-              f"mean epoch (train step + eval) {step_s * 1e3:.1f} ms "
-              f"losses {[round(v, 4) for v in losses]}", flush=True)
-        if n != 6 * EPOCHS:  # per epoch: 2 forward + 2 backward + 2 eval
-            failures.append(f"{training}: {n} K1 launches")
-        if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
-            failures.append(f"{training}: losses not finite and falling")
+    for gnn, training in (("gcn", "supervised"), ("gcn", "kd"), ("sage", "supervised")):
+        n, fails = _student("chip_smoke", gnn, training, HARD_U if gnn == "sage" else ())
+        launches, failures = launches + n, failures + fails
     return launches, failures
 
 
@@ -415,6 +465,145 @@ def phase_attention_kernels(graph):
     return records, failures
 
 
+def phase_k3(graph):
+    """K3 against its plain version at the arxiv shape of the runtime-weight
+    ``spmm`` backward (the cotangent's rows by receiver, x's by sender)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops.cuda import csr_sddmm, csr_sddmm_plain
+
+    g = graph.to(DEVICE)
+    n, e, e_pad = g.num_nodes, g.n_edge, g.num_edges_padded
+    args = (g.senders, g.receivers, g.row_offsets)
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    records, failures = [], []
+    for f in (256, 40):
+        for dtype in (torch.float32, torch.bfloat16):
+            cot = torch.randn(n, f, generator=gen, device=DEVICE).to(dtype)
+            x = torch.randn(n, f, generator=gen, device=DEVICE).to(dtype)
+            got = csr_sddmm(cot, x, *args)
+            want = csr_sddmm_plain(cot, x, *args)
+            # tolerance on each dot's sum of |terms| (summation order)
+            scale = csr_sddmm_plain(cot.abs(), x.abs(), *args)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            ok = bool((diff <= TOL + TOL * scale).all()) and got.shape == (e_pad,)
+            ms = _time_ms(lambda: csr_sddmm(cot, x, *args))
+            plain_ms = _time_ms(lambda: csr_sddmm_plain(cot, x, *args))
+            xt = x.t().contiguous()
+            library_ms = None
+            try:  # the yardstick's sampling pattern, in the inputs' dtype
+                pattern = torch.sparse_csr_tensor(
+                    g.row_offsets, g.senders[:e],
+                    torch.zeros(e, dtype=dtype, device=DEVICE), (n, n))
+            except (RuntimeError, NotImplementedError) as exc:
+                print(f"  library call K3 ({dtype} CSR pattern) unavailable: {exc}")
+            else:
+                library_ms = _library_ms(
+                    f"K3 (sampled_addmm, {dtype})",
+                    lambda: torch.sparse.sampled_addmm(pattern, cot, xt, beta=0.0))
+            item = x.element_size()
+            bound_ms, bound_by = _bound(
+                2 * n * f * item + 2 * e * 4 + e_pad * 4 + 4, 2 * e * f)
+            gathered_ms = (2 * e * f * item + 2 * e * 4 + e_pad * 4) / HBM_BYTES_PER_S * 1e3
+            name = f"K3 csr_sddmm F={f} {str(dtype)[6:]}"
+            records.append({
+                "name": name, "route": "cuda",
+                "source": "efficient_gnns_tpu_torch/ops/cuda/csrc/segment_sddmm.cu",
+                "replaces": "efficient_gnns_tpu/ops/pallas/segment_matmul.py:315",
+                "launches": None, "max_abs_err": float(diff.max()), "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms,
+                "on_main_path": dtype == torch.float32 and f == 256,
+                "shape": {"N": n, "E": e, "F": f},
+            })
+            print(f"  {name}: max_abs_err={records[-1]['max_abs_err']:.3e} "
+                  f"{'ok' if ok else 'MISMATCH'} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms={library_ms} bound_ms={bound_ms:.4f} ({bound_by}) "
+                  f"gathered_bound_ms={gathered_ms:.4f}", flush=True)
+            if not ok:
+                failures.append(name)
+            del got, want, scale, diff
+    # padding edges lie past row_offsets[N]: poisoned, they must change nothing
+    cot = torch.randn(n, 40, generator=gen, device=DEVICE)
+    src, dst = g.senders.clone(), g.receivers.clone()
+    src[e:] = 2**31 - 1
+    dst[e:] = 2**31 - 1
+    got = csr_sddmm(cot, cot, src, dst, g.row_offsets)
+    if not torch.equal(got, csr_sddmm(cot, cot, *args)) or bool(got[e:].any()):
+        failures.append("K3 read a padding edge")
+    torch.cuda.synchronize()
+    return records, failures
+
+
+def phase_runtime_spmm(graph):
+    """``spmm`` with per-call trainable edge weights on the card at arxiv
+    shape, F = 256: ``loss = sum(sin(spmm(graph, x, edge_weight=w)))``,
+    forward and backward, with K1's and K3's counters read around it.
+    Returns (launches by kernel, failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops import spmm
+    from efficient_gnns_tpu_torch.ops.cuda import (
+        csr_sddmm,
+        csr_sddmm_plain,
+        csr_segment_sum,
+        csr_segment_sum_plain,
+    )
+
+    gen = torch.Generator().manual_seed(3)
+    x0 = torch.randn(graph.num_nodes, 256, generator=gen)
+    # the GCN norm times a factor near 1: row sums of order 1 under the sin
+    w0 = graph.edge_weight * (0.5 + torch.rand(graph.num_edges_padded, generator=gen))
+
+    def run(device, weight_grad=True):
+        g = graph.to(device)
+        x = x0.to(device, copy=True).requires_grad_()
+        w = w0.to(device, copy=True).requires_grad_()
+        out = spmm(g, x, edge_weight=w, weight_grad=weight_grad)
+        loss = torch.sin(out).sum()
+        loss.backward()
+        return loss.detach(), out.detach(), x.grad, w.grad
+
+    failures = []
+    csr_segment_sum.launches = csr_sddmm.launches = 0
+    t0 = time.time()
+    loss, out, dx, dw = run(DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {"K1": csr_segment_sum.launches, "K3": csr_sddmm.launches}
+    if launches != {"K1": 2, "K3": 1}:
+        failures.append(f"runtime spmm: launches {launches}, expected K1 2, K3 1")
+
+    csr_sddmm.launches = 0
+    _, _, dx_off, dw_off = run(DEVICE, weight_grad=False)
+    if csr_sddmm.launches or bool(dw_off.any()) or not torch.equal(dx_off, dx):
+        failures.append("runtime spmm: weight_grad=False launched K3 or changed dx / dw")
+
+    ref_loss, ref_out, ref_dx, ref_dw = (t.to(DEVICE) for t in run("cpu"))
+    # tolerance on each output's sum of |terms|, computed on the card
+    g = graph.to(DEVICE)
+    cot, xd, wd = torch.cos(out), x0.to(DEVICE), w0.to(DEVICE)
+    out_scale = csr_segment_sum_plain(xd.abs(), g.senders, g.row_offsets, wd.abs())
+    dx_scale = csr_segment_sum_plain(cot.abs(), g.t_senders, g.t_row_offsets,
+                                     wd[g.csc_perm.long()].abs())
+    dw_scale = csr_sddmm_plain(cot.abs(), xd.abs(), g.senders, g.receivers, g.row_offsets)
+    errs = {}
+    for name, got, want, scale in (("out", out, ref_out, out_scale),
+                                   ("dx", dx, ref_dx, dx_scale),
+                                   ("dw", dw, ref_dw, dw_scale)):
+        diff = (got - want).abs()
+        errs[name] = float(diff.max())
+        if not bool((diff <= RT_TOL + RT_TOL * scale).all()) or got.shape != want.shape:
+            failures.append(f"runtime spmm: {name} disagrees with the CPU")
+    if not bool(torch.isfinite(loss)) or bool(dw[graph.n_edge:].any()):
+        failures.append("runtime spmm: loss not finite or dw on padding edges")
+    print(f"runtime spmm F=256: launches {launches} forward+backward "
+          f"{seconds * 1e3:.1f} ms (first call) loss {float(loss):.4f} "
+          f"(cpu {float(ref_loss):.4f}) max_abs_err vs cpu {errs}", flush=True)
+    return launches, failures
+
+
 def _teacher_config(**kw):
     from efficient_gnns_tpu_torch.train import TeacherConfig
 
@@ -446,13 +635,13 @@ def phase_teacher_reference():
 
 def phase_teacher_slice():
     """The teacher CLI at arxiv shape (counts of K2, K4-K7 read around it),
-    then the student's ``kd`` from its dump (K1 counted). Returns
-    (launches by kernel, failures)."""
+    then the student from its dump in ``kd``, ``nce`` and ``gcd`` mode (K1
+    counted). Returns (launches by kernel, failures)."""
     import math
 
     import numpy as np
 
-    from efficient_gnns_tpu_torch.cli import arxiv, gat_teacher
+    from efficient_gnns_tpu_torch.cli import gat_teacher
     from efficient_gnns_tpu_torch.distill import load_teacher_dump
     from efficient_gnns_tpu_torch.ops import cuda as K
 
@@ -484,26 +673,15 @@ def phase_teacher_slice():
             or not (np.isfinite(feats).all() and np.isfinite(logits).all())):
         failures.append("teacher dump not finite [N, 750] / [N, 40]")
 
-    K.csr_segment_sum.launches = 0
+    k1 = 0
     try:
-        arxiv.main(ARXIV + ["--signal", "0.3", "--label_noise", "0.15", "--training", "kd",
-                            "--alpha", "0.9", "--kd_T", "4", "--teacher_dir", dump_dir,
-                            "--epochs", str(EPOCHS), "--runs", "1",
-                            "--log_steps", str(EPOCHS), "--epoch_chunk", str(EPOCHS),
-                            "--device", DEVICE, "--out_dir", OUT_DIR,
-                            "--expt_name", "chip_smoke_dump"])
+        for training, extra in (("kd", ["--alpha", "0.9", "--kd_T", "4"]),
+                                ("nce", NCE), ("gcd", NCE)):
+            n, fails = _student("chip_smoke_dump", "gcn", training,
+                                HARD_U + extra + ["--teacher_dir", dump_dir])
+            k1, failures = k1 + n, failures + fails
     finally:  # the dump is 0.5 GB: too large to keep among the run's outputs
         shutil.rmtree(os.path.dirname(dump_dir))
-    k1 = K.csr_segment_sum.launches
-    with open(os.path.join(OUT_DIR, "chip_smoke_dump", "gcn-kd", "seed0",
-                           "metrics.jsonl")) as f:
-        losses = [json.loads(line)["loss/train"] for line in f][-EPOCHS:]
-    print(f"student kd on the teacher dump: K1 launches={k1} (expected {6 * EPOCHS}) "
-          f"losses {[round(v, 4) for v in losses]}", flush=True)
-    if k1 != 6 * EPOCHS:
-        failures.append(f"kd on dump: {k1} K1 launches")
-    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
-        failures.append("kd on dump: losses not finite and falling")
     launches["K1"] = k1
     return launches, failures
 
@@ -574,7 +752,8 @@ def main() -> int:
     ds = synthetic_node_dataset(num_nodes=169343, num_edges=1166243, seed=42)
     print(f"arxiv-shaped dataset built in {time.time() - t0:.1f} s", flush=True)
     records = []
-    for name, phase in (("K1", phase_k1), ("attention kernels", phase_attention_kernels)):
+    for name, phase in (("K1", phase_k1), ("attention kernels", phase_attention_kernels),
+                        ("K3", phase_k3)):
         recs, fails = run(name, phase, ds.graph) or ([], [])
         records, failures = records + recs, failures + fails
     if run("reference", phase_reference) is False:
@@ -583,14 +762,17 @@ def main() -> int:
         failures.append("cuda teacher trainer disagrees with the cpu trainer")
     k1_launches, slice_failures = run("slice", phase_slice) or (0, [])
     launches, teacher_failures = run("teacher slice", phase_teacher_slice) or ({}, [])
-    failures += slice_failures + teacher_failures
+    rt_launches, rt_failures = run("runtime spmm", phase_runtime_spmm, ds.graph) or ({}, [])
+    failures += slice_failures + teacher_failures + rt_failures
     run("teacher profile", phase_teacher_profile, ds)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches["K1"] = k1_launches + launches.get("K1", 0)
-    for r in records:
-        r["launches"] = launches[r["name"].split()[0]]
+    launches["K1"] = k1_launches + launches.get("K1", 0) + rt_launches.get("K1", 0)
+    launches["K3"] = rt_launches.get("K3", 0)
+    for r in records:  # a shape that the paths never launch counts 0
+        on_path = r.get("on_main_path", True)
+        r["launches"] = launches[r["name"].split()[0]] if on_path else 0
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,11 +9,13 @@ Each run appends per-epoch JSONL records to
 command writes ``<out_dir>/<expt_name>-<gnn>-<mode>.json`` (args, per-run
 statistics, across-run statistics).
 
-Ported so far: ``--gnn gcn`` with ``--training supervised|kd`` on
-``--dataset synthetic``. ``kd`` reads the teacher's logits from the per-seed
-``.npz`` dumps in ``--teacher_dir`` (``distill/artifacts.py``, written by
-either package's teacher CLI), or uses the oracle teacher without one.
-Every other choice raises ``NotImplementedError`` naming its ROADMAP.md item.
+``--gnn gcn|sage`` with every ``--training`` mode and ``--kd_and_aux`` on
+``--dataset synthetic``. The modes with a teacher read its features and
+logits from the per-seed ``.npz`` dumps in ``--teacher_dir``
+(``distill/artifacts.py``, written by either package's teacher CLI), or use
+the oracle teacher without one. ``--dataset ogbn-arxiv``,
+``--checkpoint_every`` and ``--resume`` raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -96,10 +98,6 @@ def _refuse_unported(args) -> None:
     if args.dataset != "synthetic":
         raise NotImplementedError(
             f"--dataset {args.dataset} is not ported yet (ROADMAP.md Queue 1)")
-    if args.gnn != "gcn":
-        raise NotImplementedError(
-            "--gnn sage (SAGEConv, spmm_mean) is not ported yet "
-            "(ROADMAP.md Queue 1 items 2 and 4)")
     if args.checkpoint_every or args.resume:
         raise NotImplementedError(
             "checkpoints are not ported yet (ROADMAP.md Queue 1 item 6)")
@@ -124,6 +122,14 @@ def oracle_teacher_logits(y: np.ndarray, num_classes: int) -> np.ndarray:
     return tl
 
 
+def oracle_teacher_features(y: np.ndarray, num_classes: int) -> np.ndarray:
+    """The oracle teacher's 64-d features: a class prototype plus noise, from
+    the JAX CLI's NumPy stream (seed 7)."""
+    rng = np.random.default_rng(7)
+    protos = rng.normal(size=(num_classes, 64)).astype(np.float32)
+    return protos[y] + 0.2 * rng.normal(size=(len(y), 64)).astype(np.float32)
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns what it writes to the JSON file."""
     args = build_parser().parse_args(argv)
@@ -131,7 +137,8 @@ def main(argv=None) -> dict:
     import torch
 
     from efficient_gnns_tpu_torch.distill import load_teacher_dump
-    from efficient_gnns_tpu_torch.models import GCN
+    from efficient_gnns_tpu_torch.graphs import induced_subgraph
+    from efficient_gnns_tpu_torch.models import GCN, SAGE
     from efficient_gnns_tpu_torch.train import (
         DistillConfig,
         Logger,
@@ -167,24 +174,33 @@ def main(argv=None) -> dict:
         f"device={device_name}"
     )
     graph = ds.graph.to(device)  # once, shared by every run
+    lsp_graph = None
+    if cfg.needs_train_subgraph():
+        lsp_graph = induced_subgraph(
+            ds.senders, ds.receivers, ds.split_idx["train"]).to(device)
 
     logger = Logger(args.runs)
     results = []
-    mode = args.training
+    # kd_and_aux is part of the experiment's identity, so composed runs do
+    # not collide with the plain mode
+    mode = ("kd+" if args.kd_and_aux else "") + args.training
     for run in range(args.runs):
         seed = args.seed + run
-        teacher_logits = None
+        teacher_feat = teacher_logits = None
         if cfg.needs_teacher() and args.teacher_dir:
-            teacher_logits = load_teacher_dump(args.teacher_dir, seed)[1]
+            teacher_feat, teacher_logits = load_teacher_dump(args.teacher_dir, seed)
         elif cfg.needs_teacher():
+            teacher_feat = oracle_teacher_features(ds.y, ds.num_classes)
             teacher_logits = oracle_teacher_logits(ds.y, ds.num_classes)
-        model = GCN(
+        model_cls = GCN if args.gnn == "gcn" else SAGE
+        model = model_cls(
             ds.x.shape[1], cfg.hidden, ds.num_classes, cfg.num_layers,
             dropout=cfg.dropout, seed=seed, device=device,
         )
         trainer = NodeDistillTrainer(
             model, cfg, graph, ds.x, ds.y, ds.split_idx,
-            teacher_logits=teacher_logits, seed=seed, device=device,
+            teacher_feat=teacher_feat, teacher_logits=teacher_logits,
+            lsp_graph=lsp_graph, seed=seed, device=device,
         )
         run_dir = os.path.join(
             args.out_dir, args.expt_name, f"{args.gnn}-{mode}", f"seed{seed}",

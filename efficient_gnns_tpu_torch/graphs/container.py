@@ -42,6 +42,10 @@ class Graph:
       edge_weight: optional float32[E_pad] per-edge scalar in CSR order;
         padding entries are 0.
       t_edge_weight: the same weights in transpose order.
+      node_scale: optional float32[num_nodes] ``d^-1/2`` of the factored
+        symmetric normalization ``out = S (A (S x))`` with
+        ``S = diag(node_scale)`` over the unweighted adjacency
+        (``build_graph(gcn_norm="factored")``).
     """
 
     senders: torch.Tensor
@@ -56,6 +60,7 @@ class Graph:
     n_edge: int
     edge_weight: Optional[torch.Tensor] = None
     t_edge_weight: Optional[torch.Tensor] = None
+    node_scale: Optional[torch.Tensor] = None
 
     @property
     def num_edges_padded(self) -> int:
@@ -109,4 +114,5 @@ class Graph:
             n_edge=self.n_edge,
             edge_weight=self.t_edge_weight,
             t_edge_weight=self.edge_weight,
+            node_scale=self.node_scale,  # symmetric: S A S transposes to itself
         )

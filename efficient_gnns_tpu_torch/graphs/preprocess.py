@@ -7,12 +7,13 @@ NumPy forms of the JAX package's native helpers (``np.lexsort`` and
 ``np.unique``), which give the identical edge order.
 
 Not ported here: the Pallas edge blockings and the hub-dense split (TPU
-layouts; the CUDA kernel walks CSR over all edges), ``gcn_norm="factored"``
-and per-edge types. See ROADMAP.md.
+layouts; the CUDA kernel walks CSR over all edges) and per-edge types. See
+ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -94,12 +95,10 @@ def build_graph(
       n_node_valid: number of valid nodes (defaults to ``num_nodes``).
       gcn_norm: attach the symmetric GCN normalization
         ``d_r^-1/2 * d_s^-1/2`` as ``edge_weight`` (the JAX package's fused
-        mode).
+        mode). The string ``"factored"`` instead stores the per-node scale
+        ``d^-1/2`` as ``Graph.node_scale`` and keeps the adjacency
+        unweighted: ``spmm`` then computes ``S (A (S x))``, the same math.
     """
-    if gcn_norm == "factored":
-        raise NotImplementedError(
-            "gcn_norm='factored' is not ported yet (ROADMAP.md, Queue 1 item 1)"
-        )
     senders = np.asarray(senders, dtype=np.int64)
     receivers = np.asarray(receivers, dtype=np.int64)
     if bidirected:
@@ -138,7 +137,7 @@ def build_graph(
     pad_perm = np.arange(e_pad, dtype=np.int32)
     pad_perm[:e] = csc_perm
 
-    ew = None
+    ew = node_scale = None
     if edge_weight is not None:
         ew = np.zeros(e_pad, dtype=np.float32)
         ew[:e] = np.asarray(edge_weight, dtype=np.float32)[csr_order]
@@ -147,8 +146,11 @@ def build_graph(
             raise ValueError("gcn_norm=True incompatible with edge_weight")
         deg = np.bincount(r_csr, minlength=n_pad).astype(np.float64)
         inv_sqrt = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1.0)), 0.0)
-        ew = np.zeros(e_pad, dtype=np.float32)
-        ew[:e] = (inv_sqrt[s_csr] * inv_sqrt[r_csr]).astype(np.float32)
+        if gcn_norm == "factored":
+            node_scale = inv_sqrt.astype(np.float32)
+        else:
+            ew = np.zeros(e_pad, dtype=np.float32)
+            ew[:e] = (inv_sqrt[s_csr] * inv_sqrt[r_csr]).astype(np.float32)
 
     n_valid = num_nodes if n_node_valid is None else n_node_valid
     return Graph(
@@ -164,4 +166,39 @@ def build_graph(
         n_edge=e,
         edge_weight=None if ew is None else torch.from_numpy(ew),
         t_edge_weight=None if ew is None else torch.from_numpy(ew[pad_perm]),
+        node_scale=None if node_scale is None else torch.from_numpy(node_scale),
     )
+
+
+def induced_subgraph(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    node_ids: np.ndarray,
+    **build_kwargs,
+) -> Graph:
+    """Node-induced subgraph with relabeled, contiguous node ids (PyG
+    ``subgraph(..., relabel_nodes=True)`` semantics: the train subgraph of
+    the LSP and edge-conditioned modes). The order of ``node_ids`` defines
+    the new labels."""
+    node_ids = np.asarray(node_ids)
+    n_total = int(max(senders.max(), receivers.max())) + 1 if len(senders) else 0
+    n_total = max(n_total, int(node_ids.max()) + 1 if len(node_ids) else 0)
+    relabel = np.full(n_total, -1, dtype=np.int64)
+    relabel[node_ids] = np.arange(len(node_ids), dtype=np.int64)
+    s = relabel[senders]
+    r = relabel[receivers]
+    keep = (s >= 0) & (r >= 0)
+    return build_graph(s[keep], r[keep], len(node_ids), **build_kwargs)
+
+
+def gcn_norm_weights(graph: Graph) -> Graph:
+    """A copy of ``graph`` with the symmetric GCN normalization weights
+    ``d_r^-1/2 * d_s^-1/2`` attached in both edge orders (0 on padding
+    edges). Assumes self loops are already present if desired."""
+    deg = graph.in_degrees()
+    inv_sqrt = torch.where(deg > 0, 1.0 / torch.sqrt(deg.clamp_min(1.0)), 0.0)
+    s = graph.senders.long().clamp_max(graph.num_nodes - 1)
+    r = graph.receivers.long().clamp_max(graph.num_nodes - 1)
+    w = torch.where(graph.edge_mask, inv_sqrt[s] * inv_sqrt[r], 0.0)
+    return dataclasses.replace(
+        graph, edge_weight=w, t_edge_weight=w[graph.csc_perm.long()])

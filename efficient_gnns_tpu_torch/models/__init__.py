@@ -1,9 +1,17 @@
-from efficient_gnns_tpu_torch.models.gnns import GCN, GATTeacher
+from efficient_gnns_tpu_torch.models.gnns import (
+    GCN,
+    SAGE,
+    GATTeacher,
+    ProjectionGCD,
+    ProjectionLinear,
+    ProjectionMLP,
+)
 from efficient_gnns_tpu_torch.models.layers import (
     DGLGATConv,
     ElementWiseLinear,
     GCNConv,
     MaskedBatchNorm,
+    SAGEConv,
 )
 from efficient_gnns_tpu_torch.models.transplant import from_jax_params
 
@@ -14,5 +22,10 @@ __all__ = [
     "GCN",
     "GCNConv",
     "MaskedBatchNorm",
+    "ProjectionGCD",
+    "ProjectionLinear",
+    "ProjectionMLP",
+    "SAGE",
+    "SAGEConv",
     "from_jax_params",
 ]

@@ -1,5 +1,5 @@
 """The GNN model zoo (counterpart of ``efficient_gnns_tpu/models/gnns.py``;
-the GCN student and the GAT teacher so far).
+the GCN and SAGE students, their projection heads and the GAT teacher).
 
 Every model's ``forward`` returns ``(logits, out_feat)``, ``out_feat`` being
 the representation used by feature-space distillation. Train or eval mode is
@@ -20,7 +20,9 @@ from efficient_gnns_tpu_torch.models.layers import (
     ElementWiseLinear,
     GCNConv,
     MaskedBatchNorm,
+    SAGEConv,
     dropout,
+    xavier_uniform,
 )
 
 
@@ -32,13 +34,15 @@ class GCN(nn.Module):
     the CPU, then moved to ``device``.
     """
 
+    conv_cls = GCNConv
+
     def __init__(self, in_feats: int, hidden: int, out_feats: int, num_layers: int,
                  dropout: float = 0.5, *, seed: int = 0, device="cuda"):
         super().__init__()
         gen = torch.Generator().manual_seed(seed)
         dims = [in_feats] + [hidden] * (num_layers - 1) + [out_feats]
         self.convs = nn.ModuleList(
-            GCNConv(dims[i], dims[i + 1], generator=gen, device=device)
+            self.conv_cls(dims[i], dims[i + 1], generator=gen, device=device)
             for i in range(num_layers)
         )
         self.bns = nn.ModuleList(
@@ -55,6 +59,61 @@ class GCN(nn.Module):
                 h = dropout(h, self.dropout, generator)
         out_feat = h
         return self.convs[-1](graph, h), out_feat
+
+
+class SAGE(GCN):
+    """PyG-style GraphSAGE student: :class:`GCN`'s stack with
+    :class:`SAGEConv` (neighbor mean + root weight) in place of ``GCNConv``."""
+
+    conv_cls = SAGEConv
+
+
+class ProjectionLinear(nn.Module):
+    """Bare linear projection (the CRD variant of the projection heads)."""
+
+    def __init__(self, in_feats: int, proj_dim: int, *, seed: int = 0, device="cuda"):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.weight = xavier_uniform(in_feats, proj_dim, gen, device)
+        self.bias = nn.Parameter(torch.zeros(proj_dim, device=device))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        return x @ self.weight + self.bias
+
+
+class ProjectionMLP(ProjectionLinear):
+    """Linear -> BN -> ReLU projection head for FitNet / GSP / G-CRD; ``mask``
+    removes padding rows from the BatchNorm statistics."""
+
+    def __init__(self, in_feats: int, proj_dim: int, *, seed: int = 0, device="cuda"):
+        super().__init__(in_feats, proj_dim, seed=seed, device=device)
+        self.bn = MaskedBatchNorm(proj_dim, device=device)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        return torch.relu(self.bn(super().forward(x), mask))
+
+
+class ProjectionGCD(nn.Module):
+    """Graph-conditioned projection ``Linear + GCNConv -> BN -> ReLU`` over
+    the whole graph; ``use_linear=False`` drops the parallel linear (the
+    variant composed with logit KD)."""
+
+    def __init__(self, in_feats: int, proj_dim: int, use_linear: bool = True, *,
+                 seed: int = 0, device="cuda"):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.conv = GCNConv(in_feats, proj_dim, generator=gen, device=device)
+        self.lin_weight = self.lin_bias = None
+        if use_linear:
+            self.lin_weight = xavier_uniform(in_feats, proj_dim, gen, device)
+            self.lin_bias = nn.Parameter(torch.zeros(proj_dim, device=device))
+        self.bn = MaskedBatchNorm(proj_dim, device=device)
+
+    def forward(self, graph: Graph, x: torch.Tensor):
+        h = self.conv(graph, x)
+        if self.lin_weight is not None:
+            h = h + x @ self.lin_weight + self.lin_bias
+        return torch.relu(self.bn(h, graph.node_mask))
 
 
 class GATTeacher(nn.Module):

@@ -1,6 +1,6 @@
 """Graph convolution layers (counterpart of
-``efficient_gnns_tpu/models/layers.py``; ``GCNConv``, ``MaskedBatchNorm``,
-``DGLGATConv`` and ``ElementWiseLinear``).
+``efficient_gnns_tpu/models/layers.py``; ``GCNConv``, ``SAGEConv``,
+``MaskedBatchNorm``, ``DGLGATConv`` and ``ElementWiseLinear``).
 
 Parameters are created on the CPU and initialized from an explicit
 ``torch.Generator``, then moved to ``device``, so one seed gives the same
@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
-from efficient_gnns_tpu_torch.ops import spmm
+from efficient_gnns_tpu_torch.ops import spmm, spmm_mean
 from efficient_gnns_tpu_torch.ops.attention import gat_attention, sample_edge_masks
 
 
@@ -62,6 +62,14 @@ class MaskedBatchNorm(nn.Module):
         return (y * self.scale + self.bias).to(x.dtype)
 
 
+def xavier_uniform(in_features: int, features: int, generator: torch.Generator,
+                   device) -> nn.Parameter:
+    """A dense kernel ``[in, out]`` drawn on the CPU, then moved."""
+    weight = torch.empty(in_features, features)
+    nn.init.xavier_uniform_(weight, generator=generator)
+    return nn.Parameter(weight.to(device))
+
+
 class GCNConv(nn.Module):
     """PyG ``GCNConv`` semantics: ``out = A_hat (X W) + b`` with the symmetric
     normalization precomputed into ``graph.edge_weight``."""
@@ -69,9 +77,7 @@ class GCNConv(nn.Module):
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  *, generator: torch.Generator, device="cuda"):
         super().__init__()
-        weight = torch.empty(in_features, features)
-        nn.init.xavier_uniform_(weight, generator=generator)
-        self.weight = nn.Parameter(weight.to(device))
+        self.weight = xavier_uniform(in_features, features, generator, device)
         self.bias = (nn.Parameter(torch.zeros(features, device=device))
                      if use_bias else None)
 
@@ -80,6 +86,23 @@ class GCNConv(nn.Module):
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         return out
+
+
+class SAGEConv(nn.Module):
+    """PyG ``SAGEConv`` (mean aggregator): ``mean_{j->i}(x_j) W_l + b + x_i W_r``.
+    ``weight`` / ``bias`` are flax ``Dense_0`` (on the neighbor mean),
+    ``root_weight`` ``Dense_1`` (on the node itself, no bias)."""
+
+    def __init__(self, in_features: int, features: int, *,
+                 generator: torch.Generator, device="cuda"):
+        super().__init__()
+        self.weight = xavier_uniform(in_features, features, generator, device)
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.root_weight = xavier_uniform(in_features, features, generator, device)
+
+    def forward(self, graph: Graph, x: torch.Tensor) -> torch.Tensor:
+        agg = spmm_mean(graph, x)
+        return agg @ self.weight + self.bias.to(agg.dtype) + x @ self.root_weight
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):

@@ -2,11 +2,12 @@
 
 ``from_jax_params`` takes the flax ``params`` and ``batch_stats`` trees as
 nested dicts of NumPy arrays (e.g. ``jax.tree.map(np.asarray, params)``,
-converted by the caller) and returns a ``state_dict`` for the port's model.
-A flax ``Dense`` kernel is ``[in, out]``; the port keeps that layout (its
-``GCNConv.weight`` and ``DGLGATConv.fc_weight`` / ``res_weight`` are applied
-as ``x @ weight``), so kernels are copied, not transposed; ``attn_l`` /
-``attn_r`` keep their ``[D, H]`` layout too.
+converted by the caller) and returns a ``state_dict`` for the port's model or
+projection head. A flax ``Dense`` kernel is ``[in, out]``; the port keeps
+that layout (its ``GCNConv.weight``, ``SAGEConv.weight`` / ``root_weight``,
+the projection heads' ``weight`` / ``lin_weight`` and ``DGLGATConv.fc_weight``
+/ ``res_weight`` are applied as ``x @ weight``), so kernels are copied, not
+transposed; ``attn_l`` / ``attn_r`` keep their ``[D, H]`` layout too.
 """
 
 from __future__ import annotations
@@ -18,9 +19,21 @@ import numpy as np
 import torch
 
 _PARAM_RULES = (
-    # GCN
+    # GCN (bias of the conv) and SAGE (bias of Dense_0, root weight Dense_1)
     (re.compile(r"conv_(\d+)/Dense_0/kernel"), "convs.{}.weight"),
     (re.compile(r"conv_(\d+)/bias"), "convs.{}.bias"),
+    (re.compile(r"conv_(\d+)/Dense_0/bias"), "convs.{}.bias"),
+    (re.compile(r"conv_(\d+)/Dense_1/kernel"), "convs.{}.root_weight"),
+    # ProjectionLinear / ProjectionMLP
+    (re.compile(r"Dense_0/kernel"), "weight"),
+    (re.compile(r"Dense_0/bias"), "bias"),
+    # ProjectionGCD
+    (re.compile(r"conv/Dense_0/kernel"), "conv.weight"),
+    (re.compile(r"conv/bias"), "conv.bias"),
+    (re.compile(r"lin/kernel"), "lin_weight"),
+    (re.compile(r"lin/bias"), "lin_bias"),
+    (re.compile(r"MaskedBatchNorm_0/scale"), "bn.scale"),
+    (re.compile(r"MaskedBatchNorm_0/bias"), "bn.bias"),
     # GATTeacher
     (re.compile(r"gat_(\d+)/Dense_0/kernel"), "convs.{}.fc_weight"),
     (re.compile(r"gat_(\d+)/Dense_1/kernel"), "convs.{}.res_weight"),
@@ -33,6 +46,8 @@ _PARAM_RULES = (
 _STAT_RULES = (
     (re.compile(r"bn_(\d+)/mean"), "bns.{}.running_mean"),
     (re.compile(r"bn_(\d+)/var"), "bns.{}.running_var"),
+    (re.compile(r"MaskedBatchNorm_0/mean"), "bn.running_mean"),
+    (re.compile(r"MaskedBatchNorm_0/var"), "bn.running_var"),
 )
 
 
@@ -63,9 +78,9 @@ def _rename(flat: Dict[str, np.ndarray], rules) -> Dict[str, torch.Tensor]:
 
 
 def from_jax_params(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """``state_dict`` for the port's :class:`~efficient_gnns_tpu_torch.models.GCN`
-    or :class:`~efficient_gnns_tpu_torch.models.GATTeacher` from the JAX
-    model's ``params`` and ``batch_stats``."""
+    """``state_dict`` for the port's ``GCN``, ``SAGE``, ``GATTeacher`` or a
+    projection head (``ProjectionLinear``, ``ProjectionMLP``,
+    ``ProjectionGCD``) from the JAX module's ``params`` and ``batch_stats``."""
     state = _rename(_flatten(params), _PARAM_RULES)
     state.update(_rename(_flatten(batch_stats), _STAT_RULES))
     return state

@@ -2,9 +2,9 @@
 plain PyTorch versions. Nothing is compiled at import: a kernel's library is
 built with ``nvcc`` at its first launch (see ``build.py``).
 
-K1 ``csr_segment_sum``; K2 ``csr_segment_sum_heads``; K4 ``csr_sddmm_heads``;
-K5 ``csr_segment_sum_thin``; K6 ``csr_segment_max_thin``; K7
-``csr_tile_rows_thin`` (numbered as the TPU kernels they replace).
+K1 ``csr_segment_sum``; K2 ``csr_segment_sum_heads``; K3 ``csr_sddmm``; K4
+``csr_sddmm_heads``; K5 ``csr_segment_sum_thin``; K6 ``csr_segment_max_thin``;
+K7 ``csr_tile_rows_thin`` (numbered as the TPU kernels they replace).
 """
 
 from efficient_gnns_tpu_torch.ops.cuda.segment_heads import (
@@ -13,6 +13,7 @@ from efficient_gnns_tpu_torch.ops.cuda.segment_heads import (
     csr_segment_sum_heads,
     csr_segment_sum_heads_plain,
 )
+from efficient_gnns_tpu_torch.ops.cuda.segment_sddmm import csr_sddmm, csr_sddmm_plain
 from efficient_gnns_tpu_torch.ops.cuda.segment_sum import (
     csr_segment_sum,
     csr_segment_sum_plain,
@@ -26,8 +27,10 @@ from efficient_gnns_tpu_torch.ops.cuda.segment_thin import (
 )
 
 __all__ = [
+    "csr_sddmm",
     "csr_sddmm_heads",
     "csr_sddmm_heads_plain",
+    "csr_sddmm_plain",
     "csr_segment_max_thin",
     "csr_segment_reduce_thin_plain",
     "csr_segment_sum",

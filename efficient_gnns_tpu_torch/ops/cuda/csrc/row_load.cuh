@@ -1,0 +1,56 @@
+// Loads of V contiguous elements of a feature row into float registers,
+// shared by the kernels that gather rows (K1 segment_sum.cu, K3
+// segment_sddmm.cu). V > 1 is one 16-byte load and needs a 16-byte aligned
+// address (the wrappers pick V = 1 otherwise).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+template <typename T, int V>
+struct Loader;
+
+template <>
+struct Loader<float, 1> {
+  __device__ __forceinline__ static void load(const float* p, float* v) {
+    v[0] = __ldg(p);
+  }
+};
+
+template <>
+struct Loader<float, 4> {
+  __device__ __forceinline__ static void load(const float* p, float* v) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+};
+
+template <>
+struct Loader<__nv_bfloat16, 1> {
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* v) {
+    v[0] = __bfloat162float(p[0]);
+  }
+};
+
+template <>
+struct Loader<__nv_bfloat16, 8> {
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* v) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
+  }
+};
+
+}  // namespace

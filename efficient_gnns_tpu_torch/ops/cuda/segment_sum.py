@@ -23,8 +23,9 @@ import torch
 from efficient_gnns_tpu_torch.ops.cuda import build
 from efficient_gnns_tpu_torch.ops.segment import csr_row_ids, gather, segment_sum
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements in one 16-byte load
+# the C interfaces that read feature rows (csrc/row_load.cuh: K1 and K3)
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements in one 16-byte load
 
 
 def _lib() -> ctypes.CDLL:
@@ -41,7 +42,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(x, src, row_offsets, w) -> None:
-    if x.dim() != 2 or x.dtype not in _DTYPE_CODE:
+    if x.dim() != 2 or x.dtype not in DTYPE_CODE:
         raise ValueError(f"x must be 2-D float32/bfloat16, got {x.dtype} {tuple(x.shape)}")
     for name, t in (("src", src), ("row_offsets", row_offsets)):
         if t.dim() != 1 or t.dtype != torch.int32:
@@ -99,11 +100,11 @@ def csr_segment_sum(
     lib = _lib()
     num_rows, f = row_offsets.numel() - 1, x.shape[1]
     out = torch.empty((num_rows, f), dtype=torch.float32, device=x.device)
-    vec = _VEC[x.dtype]
+    vec = VEC[x.dtype]
     if f % vec or x.data_ptr() % 16:
         vec = 1
     rc = lib.egt_csr_segment_sum(
-        x.data_ptr(), _DTYPE_CODE[x.dtype], vec, src.data_ptr(),
+        x.data_ptr(), DTYPE_CODE[x.dtype], vec, src.data_ptr(),
         None if w is None else w.data_ptr(), row_offsets.data_ptr(),
         out.data_ptr(), num_rows, f,
         torch.cuda.current_stream(x.device).cuda_stream,

@@ -36,16 +36,38 @@ def segment_sum(
     return out.index_add_(0, ids[keep], data[keep])
 
 
+def segment_mean(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """Mean over each segment; empty segments give 0."""
+    total = segment_sum(data, segment_ids, num_segments)
+    count = segment_sum(data.new_ones(segment_ids.shape), segment_ids, num_segments)
+    count = count.clamp_min(1)
+    return total / count.reshape((num_segments,) + (1,) * (data.dim() - 1))
+
+
+def _segment_extreme(data, segment_ids, num_segments, reduce, fill):
+    ids = segment_ids.long()
+    keep = ids < num_segments
+    out = data.new_full((num_segments,) + tuple(data.shape[1:]), fill)
+    idx = ids[keep].reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data[keep])
+    return out.scatter_reduce_(0, idx, data[keep], reduce=reduce, include_self=True)
+
+
 def segment_max(
     data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
 ) -> torch.Tensor:
     """``out[k] = max of data[i] with segment_ids[i] == k``; ids out of range
     are dropped and empty segments give ``-inf`` (as ``jax.ops.segment_max``)."""
-    ids = segment_ids.long()
-    keep = ids < num_segments
-    out = data.new_full((num_segments,) + tuple(data.shape[1:]), float("-inf"))
-    idx = ids[keep].reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data[keep])
-    return out.scatter_reduce_(0, idx, data[keep], reduce="amax", include_self=True)
+    return _segment_extreme(data, segment_ids, num_segments, "amax", float("-inf"))
+
+
+def segment_min(
+    data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int
+) -> torch.Tensor:
+    """``out[k] = min of data[i] with segment_ids[i] == k``; ids out of range
+    are dropped and empty segments give ``+inf`` (as ``jax.ops.segment_min``)."""
+    return _segment_extreme(data, segment_ids, num_segments, "amin", float("inf"))
 
 
 def segment_softmax(

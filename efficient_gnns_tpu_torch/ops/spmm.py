@@ -1,13 +1,15 @@
 """Sparse x dense products over :class:`Graph` adjacency (counterpart of
-``efficient_gnns_tpu/ops/spmm.py``: the static-weight and unweighted
-``spmm``, and the multi-head ``spmm_heads`` with per-call head weights).
+``efficient_gnns_tpu/ops/spmm.py``: ``spmm`` with no, static or per-call
+trainable edge weights and the factored norm, ``spmm_mean``, and the
+multi-head ``spmm_heads`` with per-call head weights).
 
 ``spmm``'s forward is K1 (``ops/cuda/segment_sum.py``) over the
 receiver-sorted CSR; the gradient with respect to ``x`` is K1 over the
 transpose CSR with the transpose-ordered weights, mirroring
-``_spmm_blocked_static_bwd``. Messages are read in
-``dispatch.message_dtype()``; accumulation is float32 and the result takes
-``x``'s dtype, as in the JAX blocked path.
+``_spmm_blocked_static_bwd``; with per-call weights their gradient is K3
+(``ops/cuda/segment_sddmm.py``), mirroring ``_spmm_blocked_bwd``. Messages
+are read in ``dispatch.message_dtype()``; accumulation is float32 and the
+result takes ``x``'s dtype, as in the JAX blocked path.
 
 ``spmm_heads`` mirrors ``_spmm_heads_blocked``: the forward is K2
 (``ops/cuda/segment_heads.py``) over the CSR, ``dx`` is K2 over the
@@ -17,6 +19,7 @@ It reads float32 messages only.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -24,6 +27,7 @@ import torch
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.ops import dispatch
 from efficient_gnns_tpu_torch.ops.cuda import (
+    csr_sddmm,
     csr_sddmm_heads,
     csr_segment_sum,
     csr_segment_sum_heads,
@@ -54,34 +58,103 @@ class _SpMMStatic(torch.autograd.Function):
         return dx, None, None
 
 
+class _SpMMRuntime(torch.autograd.Function):
+    """``out = A_w @ x`` with per-call edge weights ``w`` in CSR order:
+    ``dx`` is K1 over the transpose CSR with ``w[csc_perm]``, ``dw`` the
+    per-edge dots of K3 (zeros when ``weight_grad`` is off)."""
+
+    @staticmethod
+    def forward(ctx, x, w, graph: Graph, msg_dtype, weight_grad: bool):
+        wf = w.float().contiguous()
+        ctx.save_for_backward(x, wf)
+        ctx.graph, ctx.msg_dtype, ctx.weight_grad = graph, msg_dtype, weight_grad
+        ctx.w_dtype = w.dtype
+        return _aggregate(x, graph.senders, graph.row_offsets, wf, msg_dtype, x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wf = ctx.saved_tensors
+        graph, msg_dtype = ctx.graph, ctx.msg_dtype
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            w_t = wf[graph.csc_perm.long()].contiguous()
+            dx = _aggregate(g, graph.t_senders, graph.t_row_offsets, w_t,
+                            msg_dtype, x.dtype)
+        if ctx.needs_input_grad[1] and ctx.weight_grad:
+            dw = csr_sddmm(
+                g.to(msg_dtype).contiguous(), x.to(msg_dtype).contiguous(),
+                graph.senders, graph.receivers, graph.row_offsets,
+            ).to(ctx.w_dtype)
+        elif ctx.needs_input_grad[1]:
+            dw = torch.zeros_like(wf, dtype=ctx.w_dtype)
+        return dx, dw, None, None, None
+
+
 def spmm(
     graph: Graph,
     x: torch.Tensor,
     edge_weight: Optional[torch.Tensor] = None,
     transpose: bool = False,
+    weight_grad: bool = True,
 ) -> torch.Tensor:
     """``out[r] = sum_{e:(s->r)} w_e * x[s]`` — message passing aggregation.
 
     Args:
       graph: the adjacency; its ``edge_weight`` (or none: unweighted).
       x: float[num_nodes, F] node features on the graph's device.
-      edge_weight: per-call (trainable) edge weights — not ported; raises.
+      edge_weight: optional float[E_pad] per-call edge scalars in
+        receiver-sorted order; overrides ``graph.edge_weight``. Trainable:
+        its gradient is K3's per-edge dots.
       transpose: aggregate over the reversed edges instead.
+      weight_grad: set False when ``edge_weight`` carries no gradient, to
+        skip K3 in the backward (its gradient is then 0).
     """
-    if edge_weight is not None:
-        # runtime weights need the SDDMM weight gradient (K3); refuse loudly
-        # rather than silently treating them as static
-        raise NotImplementedError(
-            "spmm with runtime edge_weight (and its SDDMM gradient, K3) is not "
-            "ported yet (ROADMAP.md, Queue 1 item 2)"
-        )
     if x.dim() != 2 or x.shape[0] != graph.num_nodes:
         raise ValueError(
             f"spmm: x must be [num_nodes={graph.num_nodes}, F], got {tuple(x.shape)}"
         )
     if transpose:
         graph = graph.transpose()
+    if graph.node_scale is not None and edge_weight is not None:
+        # S A_w S is not the GCN normalization of the weighted adjacency
+        raise ValueError(
+            "spmm: runtime edge_weight on a gcn_norm='factored' graph is "
+            "undefined — build the graph with gcn_norm=False (or True) when "
+            "per-call edge weights are used"
+        )
+    if graph.node_scale is not None:
+        # factored symmetric normalization over the unweighted structure
+        scale = graph.node_scale[:, None]
+        inner = dataclasses.replace(graph, node_scale=None)
+        out = spmm(inner, (x * scale).to(x.dtype))
+        return (out * scale).to(x.dtype)
+    if edge_weight is not None:
+        if tuple(edge_weight.shape) != (graph.num_edges_padded,):
+            raise ValueError(
+                f"spmm: edge_weight must be [E_pad={graph.num_edges_padded}], got "
+                f"{tuple(edge_weight.shape)}"
+            )
+        return _SpMMRuntime.apply(x, edge_weight, graph, dispatch.message_dtype(),
+                                  weight_grad)
     return _SpMMStatic.apply(x, graph, dispatch.message_dtype())
+
+
+def spmm_mean(
+    graph: Graph,
+    x: torch.Tensor,
+    edge_weight: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Mean-aggregated SpMM (the SAGE neighbor mean): the weighted sum over
+    each node's in-edges divided by its in-degree (at least 1)."""
+    if graph.node_scale is not None:
+        # S A S x / deg is neither a neighbor mean nor the GCN norm
+        raise ValueError(
+            "spmm_mean on a gcn_norm='factored' graph is undefined — build "
+            "mean-aggregating graphs (SAGE) with gcn_norm=False"
+        )
+    total = spmm(graph, x, edge_weight)
+    deg = graph.in_degrees().to(total.dtype)
+    return total / deg.clamp_min(1.0)[:, None]
 
 
 def require_float32_messages(op: str) -> None:

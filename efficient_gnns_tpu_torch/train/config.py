@@ -1,25 +1,31 @@
 """Run configuration (counterpart of ``efficient_gnns_tpu/train/config.py``).
 
-The field names and defaults are the JAX package's. The port trains the
-``supervised`` and ``kd`` modes; the others raise until they are ported.
+The field names, defaults and training modes are the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-PORTED_MODES = ("supervised", "kd")
-_NOT_PORTED = (
-    "is not ported yet: representation-distillation modes, their projection "
-    "heads and --kd_and_aux wait for ROADMAP.md Queue 1 items 5 and 6"
+TRAINING_MODES = (
+    "supervised",
+    "kd",
+    "fitnet",
+    "at",
+    "gpw",  # GSP (the reference's flag name)
+    "lpw",  # LSP
+    "nce",  # G-CRD
+    "gcd",  # graph-conditioned G-CRD
 )
+# label- and edge-conditioned G-CRD, dispatched beside TRAINING_MODES
+STRUCTURED_NCE_MODES = ("nce-labels", "nce-edges", "nce-labels-edges")
 
 
 @dataclasses.dataclass
 class DistillConfig:
     # experiment
-    training: str = "supervised"
-    kd_and_aux: bool = False
+    training: str = "supervised"  # TRAINING_MODES or STRUCTURED_NCE_MODES
+    kd_and_aux: bool = False  # compose the aux loss with logit KD
     runs: int = 10
     epochs: int = 500
     seed: int = 0
@@ -40,19 +46,28 @@ class DistillConfig:
     # "batchmean" = standard Hinton scaling (see distill/criteria.py)
     kd_reduction: str = "numel"
 
-    # representation distillation (carried for flag parity; unused so far)
+    # representation distillation
     beta: float = 1000.0
-    kernel: str = "cosine"
+    kernel: str = "cosine"  # cosine | poly | l2 | rbf
     max_samples: int = 8192
     proj_dim: int = 256
     nce_T: float = 0.075
+
+    # teacher feature dim (750 for the arxiv GAT dumps)
     teacher_dim: int = 750
 
     def __post_init__(self):
-        if self.training not in PORTED_MODES:
-            raise NotImplementedError(f"training mode {self.training!r} {_NOT_PORTED}")
-        if self.kd_and_aux:
-            raise NotImplementedError(f"kd_and_aux {_NOT_PORTED}")
+        if self.training not in TRAINING_MODES + STRUCTURED_NCE_MODES:
+            raise ValueError(f"unknown training mode {self.training!r}")
+
+    def needs_mlp_proj(self) -> bool:
+        return self.training in ("fitnet", "gpw", "nce") + STRUCTURED_NCE_MODES
+
+    def needs_gcd_proj(self) -> bool:
+        return self.training == "gcd"
 
     def needs_teacher(self) -> bool:
-        return self.training != "supervised"
+        return self.training != "supervised" or self.kd_and_aux
+
+    def needs_train_subgraph(self) -> bool:
+        return self.training == "lpw" or self.training.endswith("edges")

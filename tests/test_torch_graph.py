@@ -12,8 +12,10 @@ import torch
 
 from efficient_gnns_tpu.data import synthetic_node_dataset as jax_synthetic
 from efficient_gnns_tpu.graphs import build_graph as jax_build_graph
+from efficient_gnns_tpu.graphs import gcn_norm_weights as jax_gcn_norm_weights
+from efficient_gnns_tpu.graphs.preprocess import induced_subgraph as jax_induced_subgraph
 from efficient_gnns_tpu_torch.data import synthetic_node_dataset
-from efficient_gnns_tpu_torch.graphs import build_graph
+from efficient_gnns_tpu_torch.graphs import build_graph, gcn_norm_weights, induced_subgraph
 
 INDEX_FIELDS = ("senders", "receivers", "t_senders", "t_receivers",
                 "csc_perm", "row_offsets", "t_row_offsets")
@@ -42,6 +44,12 @@ def assert_same_graph(jg, tg):
         np.testing.assert_allclose(tg.edge_weight.numpy(), w, rtol=1e-7, atol=0)
         np.testing.assert_allclose(tg.t_edge_weight.numpy(),
                                    w[np.asarray(jg.csc_perm)], rtol=1e-7, atol=0)
+    if jg.node_scale is None:
+        assert tg.node_scale is None
+    else:
+        assert tg.node_scale.dtype == torch.float32
+        np.testing.assert_allclose(tg.node_scale.numpy(), np.asarray(jg.node_scale),
+                                   rtol=1e-7, atol=0)
 
 
 CASES = {
@@ -50,6 +58,9 @@ CASES = {
     "edge_weight": dict(edge_weight="random"),
     "padded_nodes": dict(self_loops=True, gcn_norm=True, pad_nodes_to=150,
                          n_node_valid=120),
+    "factored": dict(bidirected=True, self_loops=True, gcn_norm="factored"),
+    "factored_padded": dict(self_loops=True, gcn_norm="factored", pad_nodes_to=150,
+                            n_node_valid=120),
 }
 
 
@@ -69,11 +80,44 @@ def test_build_graph_matches_jax(rng, case, block):
     assert bool((tg.receivers[tg.n_edge:] == tg.num_nodes).all())
 
 
-def test_transpose_matches_jax(rng):
+@pytest.mark.parametrize("gcn_norm", [True, "factored"])
+def test_transpose_matches_jax(rng, gcn_norm):
     s, r = _edges(rng, 80, 400)
-    jg = jax_build_graph(s, r, 80, edge_pad_multiple=64, gcn_norm=True).transpose()
-    tg = build_graph(s, r, 80, edge_pad_multiple=64, gcn_norm=True).transpose()
+    jg = jax_build_graph(s, r, 80, edge_pad_multiple=64, gcn_norm=gcn_norm).transpose()
+    tg = build_graph(s, r, 80, edge_pad_multiple=64, gcn_norm=gcn_norm).transpose()
     assert_same_graph(jg, tg)
+
+
+@pytest.mark.parametrize("self_loops", [False, True])
+def test_gcn_norm_weights_match_jax(rng, self_loops):
+    s, r = _edges(rng, 120, 700)
+    kw = dict(edge_pad_multiple=64, self_loops=self_loops)
+    jg = jax_gcn_norm_weights(jax_build_graph(s, r, 120, **kw))
+    bare = build_graph(s, r, 120, **kw)
+    tg = gcn_norm_weights(bare)
+    assert bare.edge_weight is None  # a copy: the input graph is left as it was
+    assert_same_graph(jg, tg)
+    assert not tg.edge_weight[tg.n_edge:].any()
+    if self_loops:  # with self loops it is build_graph's fused norm
+        fused = build_graph(s, r, 120, gcn_norm=True, **kw)
+        np.testing.assert_allclose(tg.edge_weight.numpy(), fused.edge_weight.numpy(),
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled", "empty"])
+def test_induced_subgraph_matches_jax(rng, order):
+    s, r = _edges(rng, 120, 700)
+    nodes = np.sort(rng.choice(120, size=50, replace=False))
+    if order == "shuffled":  # the order of node_ids defines the new labels
+        nodes = rng.permutation(nodes)
+    elif order == "empty":  # no edge survives: nodes that never meet
+        nodes = np.array([118, 119])
+    jg = jax_induced_subgraph(s, r, nodes, edge_pad_multiple=64)
+    tg = induced_subgraph(s, r, nodes, edge_pad_multiple=64)
+    assert_same_graph(jg, tg)
+    assert tg.num_nodes == len(nodes)
+    if order != "empty":
+        assert 0 < tg.n_edge < 700
 
 
 def test_to_device_keeps_fields(rng):
@@ -83,6 +127,8 @@ def test_to_device_keeps_fields(rng):
     for name in INDEX_FIELDS + ("edge_weight", "t_edge_weight", "node_mask"):
         assert torch.equal(getattr(moved, name), getattr(tg, name)), name
     assert (moved.num_nodes, moved.n_edge) == (tg.num_nodes, tg.n_edge)
+    factored = build_graph(s, r, 40, edge_pad_multiple=64, gcn_norm="factored")
+    assert torch.equal(factored.to("cpu").node_scale, factored.node_scale)
 
 
 def test_int32_guard():

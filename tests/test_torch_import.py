@@ -30,7 +30,10 @@ def test_port_imports_without_jax():
     for name in ("cli.arxiv", "cli.gat_teacher", "ops.cuda.segment_sum",
                  "ops.cuda.segment_heads", "ops.cuda.segment_thin", "ops.attention",
                  "ops.edge_softmax", "ops.sddmm", "train.gat_teacher",
-                 "distill.artifacts"):
+                 "distill.artifacts", "ops.cuda.segment_sddmm", "ops.spmm",
+                 "ops.segment", "distill.criteria", "graphs.preprocess",
+                 "models.gnns", "models.layers", "models.transplant",
+                 "train.config", "train.node_trainer"):
         assert f"efficient_gnns_tpu_torch.{name}" in modules, name
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

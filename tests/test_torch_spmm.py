@@ -133,8 +133,11 @@ def test_spmm_bf16_messages_match_jax(rng):
 def test_spmm_refuses_runtime_weights_and_bad_shapes(rng):
     _, tg, n = _graphs(rng, "random", "gcn")
     x = torch.zeros(n, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        spmm(tg, x, edge_weight=torch.ones(tg.num_edges_padded))
+    # per-call weights are taken in CSR order over all E_pad edges
+    # (tests/test_torch_spmm_runtime.py); any other length is refused
+    assert spmm(tg, x, edge_weight=torch.ones(tg.num_edges_padded)).shape == (n, 8)
+    with pytest.raises(ValueError, match="edge_weight"):
+        spmm(tg, x, edge_weight=torch.ones(tg.n_edge))
     with pytest.raises(ValueError):
         spmm(tg, torch.zeros(n + 1, 8))
 
