@@ -13,7 +13,8 @@ it imports nothing of JAX. Phases, each of which must pass:
    self-looped synthetic edge set, F = 256, 128 and 40, float32 and bfloat16,
    the forward CSR and the transpose CSR of the backward), with its time,
    the plain version's, one library call's (``torch.sparse`` CSR matmul,
-   timed only) and its bound;
+   timed only) and its bound; two launches must give the same bits, and a
+   call without the graph's row split the same as one with it;
 4. small-input reference: the student trainer on the card against the same
    trainer on the CPU (which the tests hold against the JAX package), for
    the GCN in ``supervised``, the GCN in ``nce`` composed with logit KD and
@@ -25,7 +26,8 @@ it imports nothing of JAX. Phases, each of which must pass:
 6. K2, K4, K5, K6 and K7 (the GAT attention kernels) against their plain
    versions at the teacher's arxiv shapes (H = 3 heads of D = 250 and the
    last layer's H = 1, D = 40; forward and transpose CSR), with their times,
-   the plain versions', one library yardstick's each and their bounds;
+   the plain versions', one library yardstick's each and their bounds; K2
+   is held to the same bits over two launches and without the row split;
 7. small-input reference: the teacher trainer on the card against the same
    trainer on the CPU (dropouts 0, no label split);
 8. the teacher slice: ``efficient_gnns_tpu_torch.cli.gat_teacher`` trains
@@ -34,8 +36,11 @@ it imports nothing of JAX. Phases, each of which must pass:
    kernels' launch counters read around the run; then ``cli.arxiv`` trains
    the GCN student from that dump in ``kd``, ``nce`` (MLP projection heads,
    8192 sampled rows) and ``gcd`` (graph-conditioned heads) mode;
-9. a profile of one teacher epoch at arxiv shape (``torch.profiler``): the
-   device time by kernel, the table written to ``OUT_DIR``;
+9. a profile of one teacher epoch and of a chunk of GCN ``supervised``
+   student epochs at arxiv shape (``torch.profiler``): device busy and idle
+   share, the device time by kernel, the host calls that wait for the
+   device, the tables written to ``OUT_DIR``; and the steady epoch time of
+   both trainers without the profiler;
 10. K3 (``csr_sddmm``, the weight gradient of ``spmm`` with per-call
     weights) against its plain version at the arxiv shape, F = 256 and 40,
     float32 and bfloat16, with its time, the plain version's, one library
@@ -43,14 +48,24 @@ it imports nothing of JAX. Phases, each of which must pass:
 11. the runtime-weight path: ``sum(sin(spmm(graph, x, edge_weight=w)))``
     forward and backward on the card at arxiv shape, F = 256, with K1's and
     K3's launch counters read around it, ``dx`` and ``dw`` held against the
-    same call on the CPU, and ``weight_grad=False`` (zero ``dw``, no K3).
+    same call on the CPU, and ``weight_grad=False`` (zero ``dw``, no K3);
+12. the row split's edges: K1 and K2 on small made-up graphs on the card
+    against their plain versions (one row holding every edge; rows of
+    exactly T, T + 1, 2T and 2T + 1 edges; empty rows before, between and
+    after long rows; the last row long; F in {1, 33, 40, 250, 256}, float32
+    and bfloat16, weighted and unweighted for K1; (H, D) in {(1, 40),
+    (3, 250), (4, 33)} for K2), each launched twice for the same bits;
+13. K1 and K2 at other chunk sizes than the one the graph is built with
+    (times only: what ``ROW_SPLIT_THRESHOLD`` was chosen from).
 
-The last lines are the kernels' JSON record, the ``nvidia-smi`` line and
+``--only a,b`` runs the named phases alone (see ``main``). The last lines
+are the kernels' JSON record, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``; a failed phase exits non-zero before them.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -59,6 +74,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -165,18 +181,20 @@ def phase_k1(graph):
     for f in (256, 128, 40):  # hidden, input features (SAGE's first mean), classes
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(n, f, generator=gen, device=DEVICE).to(dtype)
-            for direction, src, ro, w in (
-                ("fwd", g.senders, g.row_offsets, g.edge_weight),
-                ("bwd", g.t_senders, g.t_row_offsets, g.t_edge_weight),
+            for direction, src, ro, w, sp in (
+                ("fwd", g.senders, g.row_offsets, g.edge_weight, g.row_split),
+                ("bwd", g.t_senders, g.t_row_offsets, g.t_edge_weight, g.t_row_split),
             ):
-                got = csr_segment_sum(x, src, ro, w)
+                got = csr_segment_sum(x, src, ro, w, sp)
                 want = csr_segment_sum_plain(x, src, ro, w)
                 abs_sum = csr_segment_sum_plain(x.abs(), src, ro, w.abs())
                 torch.cuda.synchronize()
                 diff = (got - want).abs()
                 err = float(diff.max())
                 ok = bool((diff <= TOL + TOL * abs_sum).all()) and got.shape == (n, f)
-                ms = _time_ms(lambda: csr_segment_sum(x, src, ro, w), 20)
+                same_bits = torch.equal(got, csr_segment_sum(x, src, ro, w, sp))
+                no_split = torch.equal(got, csr_segment_sum(x, src, ro, w))
+                ms = _time_ms(lambda: csr_segment_sum(x, src, ro, w, sp), 20)
                 plain_ms = _time_ms(lambda: csr_segment_sum_plain(x, src, ro, w), 5)
                 library_ms = None
                 try:  # the yardstick: one cuSPARSE call through torch.sparse
@@ -208,19 +226,25 @@ def phase_k1(graph):
                     "on_main_path": dtype == torch.float32
                     and not (f == 128 and direction == "bwd"),
                     "shape": {"N": n, "E": e, "F": f},
+                    "redesigned": "row split",
                 })
                 print(f"  {name}: max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'} "
                       f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms} "
                       f"bound_ms={records[-1]['bound_ms']:.4f} "
-                      f"gathered_bound_ms={gathered_ms:.4f}", flush=True)
+                      f"gathered_bound_ms={gathered_ms:.4f} "
+                      f"two launches {'equal' if same_bits else 'DIFFER'} "
+                      f"without split {'equal' if no_split else 'DIFFERS'}", flush=True)
                 if not ok:
                     failures.append(name)
+                if not (same_bits and no_split):
+                    failures.append(f"{name}: not the same bits twice or without the split")
     # padding edges lie past row_offsets[N]: poisoned, they must change nothing
     x = torch.randn(n, 40, generator=gen, device=DEVICE)
     poisoned = g.senders.clone()
     poisoned[e:] = 2**31 - 1
-    if not torch.equal(csr_segment_sum(x, poisoned, g.row_offsets, g.edge_weight),
-                       csr_segment_sum(x, g.senders, g.row_offsets, g.edge_weight)):
+    if not torch.equal(
+            csr_segment_sum(x, poisoned, g.row_offsets, g.edge_weight, g.row_split),
+            csr_segment_sum(x, g.senders, g.row_offsets, g.edge_weight, g.row_split)):
         failures.append("K1 read a padding edge")
     torch.cuda.synchronize()
     return records, failures
@@ -354,8 +378,10 @@ def phase_attention_kernels(graph):
         if not ok:
             failures.append(f"{kernel} {name}")
 
-    directions = (("fwd", g.senders, g.receivers, g.row_offsets, None),
-                  ("bwd", g.t_senders, g.t_receivers, g.t_row_offsets, g.csc_perm.long()))
+    directions = (
+        ("fwd", g.senders, g.receivers, g.row_offsets, None, g.row_split),
+        ("bwd", g.t_senders, g.t_receivers, g.t_row_offsets, g.csc_perm.long(),
+         g.t_row_split))
     for h, d in HEADS:
         hd = h * d
         x = torch.randn(n, hd, generator=gen, device=DEVICE)
@@ -363,15 +389,21 @@ def phase_attention_kernels(graph):
         w = torch.rand(e_pad, h, generator=gen, device=DEVICE)
         v = torch.randn(e_pad, h, generator=gen, device=DEVICE)
         vals = torch.randn(n, h, generator=gen, device=DEVICE)
-        for direction, src, dst, ro, perm in directions:
+        for direction, src, dst, ro, perm, sp in directions:
             wd = w if perm is None else w[perm].contiguous()
             shape = {"N": n, "E": e, "H": h, "D": d}
             tag = f"{direction} H={h} D={d}"
             # K2: multi-head segment sum; tolerance on each row's sum of |terms|
-            got = K.csr_segment_sum_heads(x, wd, src, ro)
+            got = K.csr_segment_sum_heads(x, wd, src, ro, sp)
             want = K.csr_segment_sum_heads_plain(x, wd, src, ro)
             scale = K.csr_segment_sum_heads_plain(x.abs(), wd.abs(), src, ro)
             diff = (got - want).abs()
+            same_bits = torch.equal(got, K.csr_segment_sum_heads(x, wd, src, ro, sp))
+            no_split = torch.equal(got, K.csr_segment_sum_heads(x, wd, src, ro))
+            print(f"  K2 {tag}: two launches {'equal' if same_bits else 'DIFFER'}, "
+                  f"without split {'equal' if no_split else 'DIFFERS'}", flush=True)
+            if not (same_bits and no_split):
+                failures.append(f"K2 {tag}: not the same bits twice or without the split")
             xs = [x.view(n, h, d)[:, j].contiguous() for j in range(h)]
             mats = [torch.sparse_csr_tensor(ro, src[:e], wd[:e, j].contiguous(), (n, n))
                     for j in range(h)]
@@ -380,9 +412,10 @@ def phase_attention_kernels(graph):
             record("K2", f"csr_segment_sum_heads {tag}", "segment_heads.cu",
                    "segment_matmul.py:92", float(diff.max()),
                    bool((diff <= TOL + TOL * scale).all()),
-                   lambda: K.csr_segment_sum_heads(x, wd, src, ro),
+                   lambda: K.csr_segment_sum_heads(x, wd, src, ro, sp),
                    lambda: K.csr_segment_sum_heads_plain(x, wd, src, ro), lib,
                    2 * n * hd * 4 + e * 4 + e * h * 4 + (n + 1) * 4, 2 * e * hd, shape)
+            records[-1]["redesigned"] = "row split"
             del got, want, scale, diff
             # K4: per-edge head dots; tolerance on each dot's sum of |terms|
             got = K.csr_sddmm_heads(gg, x, src, dst, ro, h)
@@ -449,8 +482,9 @@ def phase_attention_kernels(graph):
     nan_w = w.clone()
     nan_w[e:] = float("nan")
     checks = {
-        "K2": torch.equal(K.csr_segment_sum_heads(x, nan_w, src, g.row_offsets),
-                          K.csr_segment_sum_heads(x, w, g.senders, g.row_offsets)),
+        "K2": torch.equal(
+            K.csr_segment_sum_heads(x, nan_w, src, g.row_offsets, g.row_split),
+            K.csr_segment_sum_heads(x, w, g.senders, g.row_offsets, g.row_split)),
         "K4": torch.equal(K.csr_sddmm_heads(x, x, src, dst, g.row_offsets, h),
                           K.csr_sddmm_heads(x, x, g.senders, g.receivers, g.row_offsets, h)),
         "K5": torch.equal(K.csr_segment_sum_thin(nan_w, g.row_offsets),
@@ -604,6 +638,97 @@ def phase_runtime_spmm(graph):
     return launches, failures
 
 
+def phase_split_edges():
+    """K1 and K2 at the edges of the row split, on small made-up graphs on
+    the card: each case against the plain version (``TOL + TOL * sum|terms|``)
+    and launched twice for the same bits. Padding edges carry an
+    out-of-range sender and a NaN weight. Returns the failures."""
+    import torch
+
+    from efficient_gnns_tpu_torch.graphs import ROW_SPLIT_THRESHOLD as T
+    from efficient_gnns_tpu_torch.graphs import build_row_split
+    from efficient_gnns_tpu_torch.ops import cuda as K
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    cases = {
+        "one row holds every edge": [5 * T + 3],
+        "rows of T, T+1, 2T, 2T+1 among empty rows":
+            [0, T, 0, T + 1, 0, 0, 2 * T, 2 * T + 1, 0, 3, 0],
+        "the last row long": [2, 0, 7, 3 * T + 5],
+    }
+    n_src, pad, checks, failures = 97, 37, 0, []
+
+    def hold(tag, got, again, want, scale):
+        nonlocal checks
+        checks += 1
+        if not bool(((got - want).abs() <= TOL + TOL * scale).all()):
+            failures.append(f"split edges: {tag} disagrees with the plain version")
+        if not torch.equal(got, again):
+            failures.append(f"split edges: {tag} differs between two launches")
+
+    for case, degrees in cases.items():
+        deg = torch.tensor(degrees)
+        e = int(deg.sum())
+        ro = torch.zeros(len(degrees) + 1, dtype=torch.int32)
+        ro[1:] = torch.cumsum(deg, 0)
+        split = build_row_split(ro).to(DEVICE)
+        assert split.num_long == sum(d > T for d in degrees)
+        ro = ro.to(DEVICE)
+        src = torch.randint(0, n_src, (e + pad,), generator=gen, device=DEVICE,
+                            dtype=torch.int32)
+        src[e:] = 2**31 - 1
+        for f in (1, 33, 40, 250, 256):
+            w = torch.randn(e + pad, generator=gen, device=DEVICE)
+            w[e:] = float("nan")
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(n_src, f, generator=gen, device=DEVICE).to(dtype)
+                for wt in (w, None):
+                    hold(f"K1 {case} F={f} {str(dtype)[6:]} "
+                         f"{'weighted' if wt is not None else 'unweighted'}",
+                         K.csr_segment_sum(x, src, ro, wt, split),
+                         K.csr_segment_sum(x, src, ro, wt, split),
+                         K.csr_segment_sum_plain(x, src, ro, wt),
+                         K.csr_segment_sum_plain(x.abs(), src, ro,
+                                                 None if wt is None else wt.abs()))
+        for h, d in ((1, 40), (3, 250), (4, 33)):
+            x = torch.randn(n_src, h * d, generator=gen, device=DEVICE)
+            w = torch.randn(e + pad, h, generator=gen, device=DEVICE)
+            w[e:] = float("nan")
+            hold(f"K2 {case} H={h} D={d}",
+                 K.csr_segment_sum_heads(x, w, src, ro, split),
+                 K.csr_segment_sum_heads(x, w, src, ro, split),
+                 K.csr_segment_sum_heads_plain(x, w, src, ro),
+                 K.csr_segment_sum_heads_plain(x.abs(), w.abs(), src, ro))
+    torch.cuda.synchronize()
+    print(f"split edges: {checks} cases at T={T}, {len(failures)} failed", flush=True)
+    return failures
+
+
+def phase_threshold_sweep(graph):
+    """K1 (F = 256 and 40) and K2 (H = 3, D = 250) at arxiv shape with the
+    row split built at other chunk sizes: times only."""
+    import torch
+
+    from efficient_gnns_tpu_torch.graphs import ROW_SPLIT_THRESHOLD, build_row_split
+    from efficient_gnns_tpu_torch.ops import cuda as K
+
+    g = graph.to(DEVICE)
+    n = g.num_nodes
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    xs = {f: torch.randn(n, f, generator=gen, device=DEVICE) for f in (256, 40, 750)}
+    wh = torch.rand(g.num_edges_padded, 3, generator=gen, device=DEVICE)
+    for t in (32, 64, 128, 256, 512, 2048):
+        sp = build_row_split(graph.row_offsets, t).to(DEVICE)
+        ms = [_time_ms(lambda: K.csr_segment_sum(xs[f], g.senders, g.row_offsets,
+                                                 g.edge_weight, sp), 20)
+              for f in (256, 40)]
+        ms.append(_time_ms(lambda: K.csr_segment_sum_heads(
+            xs[750], wh, g.senders, g.row_offsets, sp), 20))
+        print(f"threshold {t}{' (built in)' if t == ROW_SPLIT_THRESHOLD else ''}: "
+              f"{sp.num_long} long rows, {sp.num_chunks} chunks; K1 F=256 {ms[0]:.4f} ms, "
+              f"K1 F=40 {ms[1]:.4f} ms, K2 H=3 D=250 {ms[2]:.4f} ms", flush=True)
+
+
 def _teacher_config(**kw):
     from efficient_gnns_tpu_torch.train import TeacherConfig
 
@@ -686,45 +811,111 @@ def phase_teacher_slice():
     return launches, failures
 
 
-def phase_teacher_profile(ds):
-    """One teacher epoch at arxiv shape under torch.profiler: device time by
-    kernel (the table goes to ``OUT_DIR/teacher_profile.txt``)."""
+# host calls that wait for the device (or, for the copies, may)
+_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+          "cudaMemcpyAsync", "cudaMemcpy", "aten::item", "aten::_local_scalar_dense",
+          "aten::nonzero")
+
+
+def _profile(tag, chunk, epochs):
+    """``chunk()`` (``epochs`` epochs of a trainer, ending in its one host
+    copy) under torch.profiler: wall time, device busy time and idle share,
+    device time by kernel, and the host calls that wait for the device. The
+    table goes to ``OUT_DIR/<tag>_profile.txt``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from efficient_gnns_tpu_torch.train import GATTeacherTrainer
-
-    cfg = _teacher_config(input_drop=0.25, edge_drop=0.3)
-    trainer = GATTeacherTrainer(cfg, ds.graph, ds.x, ds.y, ds.split_idx,
-                                ds.num_classes, device=DEVICE)
-    best, _ = trainer.run_epochs(1, 1)  # warm-up
     torch.cuda.synchronize()
     t0 = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.run_epochs(2, 1, best)
+        chunk()
         torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
+
     def self_device_us(ev):  # named self_cuda_time_total before torch 2.4
         us = getattr(ev, "self_device_time_total", None)
         return ev.self_cuda_time_total if us is None else us
 
     # device-side entries only: a kernel launched through ctypes is also
     # charged to the host-side op around it (e.g. _GATAttention)
-    events = [ev for ev in prof.key_averages()
+    averages = prof.key_averages()
+    events = [ev for ev in averages
               if ev.device_type == DeviceType.CUDA and self_device_us(ev) > 0]
     device_ms = sum(self_device_us(ev) for ev in events) / 1e3
     events.sort(key=lambda ev: -self_device_us(ev))
+    waits = {ev.key: ev.count for ev in averages
+             if ev.device_type == DeviceType.CPU and ev.key in _WAITS}
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "teacher_profile.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
-    print(f"teacher epoch profile: wall {wall_ms:.1f} ms (profiled), device busy "
-          f"{device_ms:.1f} ms ({100 * (1 - device_ms / wall_ms):.1f}% idle)", flush=True)
-    for ev in events[:12]:
-        print(f"  {self_device_us(ev) / 1e3:9.2f} ms  {ev.count:4d}x  {ev.key[:90]}")
+    with open(os.path.join(OUT_DIR, f"{tag}_profile.txt"), "w") as f:
+        f.write(averages.table(sort_by="self_cuda_time_total", row_limit=40))
+    print(f"{tag} profile, {epochs} epoch(s) in one chunk: wall {wall_ms:.1f} ms "
+          f"(profiled), device busy {device_ms:.1f} ms "
+          f"({100 * (1 - device_ms / wall_ms):.1f}% idle); host calls that wait for "
+          f"the device, the closing synchronize included: {waits}", flush=True)
+    for ev in events[:14]:
+        print(f"  {self_device_us(ev) / 1e3:9.3f} ms  {ev.count:4d}x  {ev.key[:90]}")
 
 
-def main() -> int:
+def _steady_ms(chunk, epochs):
+    """Host clock around ``chunk()`` (``epochs`` warm epochs ending in a host
+    copy), per epoch, without the profiler."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    chunk()
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3 / epochs
+
+
+def phase_teacher_profile(ds):
+    """One teacher epoch at arxiv shape under torch.profiler, and the steady
+    epoch time over three more."""
+    from efficient_gnns_tpu_torch.train import GATTeacherTrainer
+
+    cfg = _teacher_config(input_drop=0.25, edge_drop=0.3)
+    trainer = GATTeacherTrainer(cfg, ds.graph, ds.x, ds.y, ds.split_idx,
+                                ds.num_classes, device=DEVICE)
+    best, _ = trainer.run_epochs(1, 1)  # warm-up
+    _profile("teacher", lambda: trainer.run_epochs(2, 1, best), 1)
+    ms = _steady_ms(lambda: trainer.run_epochs(3, 3, best), 3)
+    print(f"teacher steady epoch (3 warm epochs, one chunk, host clock): {ms:.2f} ms",
+          flush=True)
+
+
+def phase_student_profile(ds):
+    """A chunk of five GCN ``supervised`` epochs at arxiv shape (2 x 256, the
+    CLI's defaults) under torch.profiler, and the steady epoch time over
+    twenty more."""
+    from efficient_gnns_tpu_torch.models import GCN
+    from efficient_gnns_tpu_torch.train import DistillConfig, NodeDistillTrainer
+
+    model = GCN(ds.x.shape[1], 256, ds.num_classes, 2, dropout=0.5, seed=0, device=DEVICE)
+    trainer = NodeDistillTrainer(model, DistillConfig(hidden=256, num_layers=2), ds.graph,
+                                 ds.x, ds.y, ds.split_idx, device=DEVICE)
+    trainer.run_epochs(1, 2)  # warm-up
+    _profile("student", lambda: trainer.run_epochs(3, 5), 5)
+    ms = _steady_ms(lambda: trainer.run_epochs(8, 20), 20)
+    print(f"student gcn supervised steady epoch (20 warm epochs, one chunk, host "
+          f"clock): {ms:.2f} ms", flush=True)
+
+
+PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
+          "reference", "teacher_reference", "slice", "teacher_slice", "runtime_spmm",
+          "teacher_profile", "student_profile")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", default="",
+                        help="comma-separated phases to run alone, of " + ", ".join(PHASES)
+                        + " (device and build always run); default: all")
+    only = [p for p in parser.parse_args(argv).only.split(",") if p]
+    if any(p not in PHASES for p in only):
+        parser.error(f"--only takes {', '.join(PHASES)}")
+    chosen = set(only or PHASES)
+
     import torch
 
     if not torch.cuda.is_available():
@@ -732,13 +923,17 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the library yardsticks build sparse CSR tensors: one warning per call
+    warnings.filterwarnings("ignore", message="Sparse (CSR tensor support|invariant checks)")
 
     from efficient_gnns_tpu_torch.data import synthetic_node_dataset
 
     failures = []
 
     def run(name, phase, *args):
-        """Run one phase; report a raise and go on with the others."""
+        """Run one phase if chosen; report a raise and go on with the others."""
+        if name not in chosen:
+            return None
         try:
             return phase(*args)
         except Exception:  # report, then run the other phases
@@ -752,19 +947,22 @@ def main() -> int:
     ds = synthetic_node_dataset(num_nodes=169343, num_edges=1166243, seed=42)
     print(f"arxiv-shaped dataset built in {time.time() - t0:.1f} s", flush=True)
     records = []
-    for name, phase in (("K1", phase_k1), ("attention kernels", phase_attention_kernels),
-                        ("K3", phase_k3)):
+    for name, phase in (("k1", phase_k1), ("attention_kernels", phase_attention_kernels),
+                        ("k3", phase_k3)):
         recs, fails = run(name, phase, ds.graph) or ([], [])
         records, failures = records + recs, failures + fails
+    failures += run("split_edges", phase_split_edges) or []
+    run("threshold_sweep", phase_threshold_sweep, ds.graph)
     if run("reference", phase_reference) is False:
         failures.append("cuda trainer disagrees with the cpu trainer")
-    if run("teacher reference", phase_teacher_reference) is False:
+    if run("teacher_reference", phase_teacher_reference) is False:
         failures.append("cuda teacher trainer disagrees with the cpu trainer")
     k1_launches, slice_failures = run("slice", phase_slice) or (0, [])
-    launches, teacher_failures = run("teacher slice", phase_teacher_slice) or ({}, [])
-    rt_launches, rt_failures = run("runtime spmm", phase_runtime_spmm, ds.graph) or ({}, [])
+    launches, teacher_failures = run("teacher_slice", phase_teacher_slice) or ({}, [])
+    rt_launches, rt_failures = run("runtime_spmm", phase_runtime_spmm, ds.graph) or ({}, [])
     failures += slice_failures + teacher_failures + rt_failures
-    run("teacher profile", phase_teacher_profile, ds)
+    run("teacher_profile", phase_teacher_profile, ds)
+    run("student_profile", phase_student_profile, ds)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
@@ -772,7 +970,11 @@ def main() -> int:
     launches["K3"] = rt_launches.get("K3", 0)
     for r in records:  # a shape that the paths never launch counts 0
         on_path = r.get("on_main_path", True)
-        r["launches"] = launches[r["name"].split()[0]] if on_path else 0
+        r["launches"] = launches.get(r["name"].split()[0], 0) if on_path else 0
+    if not only and any(r["launches"] == 0 for r in records if r.get("on_main_path", True)):
+        print("chip_smoke FAILED: a kernel of the main paths was never launched",
+              file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,13 +7,23 @@ from efficient_gnns_tpu_torch.graphs.preprocess import (
     pad_length,
     to_bidirected,
 )
+from efficient_gnns_tpu_torch.graphs.row_split import (
+    ROW_SPLIT_THRESHOLD,
+    RowSplit,
+    build_row_split,
+    segment_sum_by_split,
+)
 
 __all__ = [
     "Graph",
+    "ROW_SPLIT_THRESHOLD",
+    "RowSplit",
     "add_self_loops",
     "build_graph",
+    "build_row_split",
     "gcn_norm_weights",
     "induced_subgraph",
     "pad_length",
+    "segment_sum_by_split",
     "to_bidirected",
 ]

@@ -16,7 +16,9 @@ Unlike the JAX container the transpose-ordered edge weight
 (``t_edge_weight == edge_weight[csc_perm]``) is stored too, built once at
 graph build, so the backward SpMM reads it without a per-step permutation.
 There is no ``EdgeBlocking``: receiver-sorted CSR is the layout the CUDA
-kernel walks directly.
+kernels walk directly. In its place the graph carries the chunk schedule of
+its long rows in both orders (``row_split`` / ``t_row_split``,
+``graphs/row_split.py``), which K1 and K2 use to split power-law hub rows.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from efficient_gnns_tpu_torch.graphs.row_split import RowSplit
 
 
 @dataclasses.dataclass
@@ -46,6 +50,9 @@ class Graph:
         symmetric normalization ``out = S (A (S x))`` with
         ``S = diag(node_scale)`` over the unweighted adjacency
         (``build_graph(gcn_norm="factored")``).
+      row_split, t_row_split: the chunk schedules of ``row_offsets`` and
+        ``t_row_offsets`` (``build_graph`` attaches both; without them K1 and
+        K2 derive the schedule at every call, with a host copy).
     """
 
     senders: torch.Tensor
@@ -61,6 +68,8 @@ class Graph:
     edge_weight: Optional[torch.Tensor] = None
     t_edge_weight: Optional[torch.Tensor] = None
     node_scale: Optional[torch.Tensor] = None
+    row_split: Optional[RowSplit] = None
+    t_row_split: Optional[RowSplit] = None
 
     @property
     def num_edges_padded(self) -> int:
@@ -84,13 +93,13 @@ class Graph:
         return (self.t_row_offsets[1:] - self.t_row_offsets[:-1]).float()
 
     def to(self, device) -> "Graph":
-        """A copy with every tensor on ``device``."""
+        """A copy with every tensor (and both row splits) on ``device``."""
         return dataclasses.replace(
             self,
             **{
                 f.name: getattr(self, f.name).to(device)
                 for f in dataclasses.fields(self)
-                if isinstance(getattr(self, f.name), torch.Tensor)
+                if isinstance(getattr(self, f.name), (torch.Tensor, RowSplit))
             },
         )
 
@@ -115,4 +124,6 @@ class Graph:
             edge_weight=self.t_edge_weight,
             t_edge_weight=self.edge_weight,
             node_scale=self.node_scale,  # symmetric: S A S transposes to itself
+            row_split=self.t_row_split,
+            t_row_split=self.row_split,
         )

@@ -7,8 +7,8 @@ NumPy forms of the JAX package's native helpers (``np.lexsort`` and
 ``np.unique``), which give the identical edge order.
 
 Not ported here: the Pallas edge blockings and the hub-dense split (TPU
-layouts; the CUDA kernel walks CSR over all edges) and per-edge types. See
-ROADMAP.md.
+layouts; the CUDA kernels walk CSR over all edges, with the long rows cut
+into chunks by ``graphs/row_split.py``) and per-edge types. See ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
+from efficient_gnns_tpu_torch.graphs.row_split import build_row_split
 
 
 def pad_length(n: int, multiple: int = 128) -> int:
@@ -85,8 +86,9 @@ def build_graph(
     """Build a :class:`Graph` on the CPU from a raw COO edge list.
 
     Sorts edges by receiver (ties by sender), materializes the transpose
-    order and both CSR offset arrays, and pads the edge list to a static
-    length with out-of-range sentinels. Move the result with ``.to(device)``.
+    order, both CSR offset arrays and their row splits, and pads the edge
+    list to a static length with out-of-range sentinels. Move the result
+    with ``.to(device)``.
 
     Args:
       pad_nodes_to: node-dimension size (defaults to ``num_nodes``).
@@ -153,20 +155,24 @@ def build_graph(
             ew[:e] = (inv_sqrt[s_csr] * inv_sqrt[r_csr]).astype(np.float32)
 
     n_valid = num_nodes if n_node_valid is None else n_node_valid
+    row_offsets = _csr_offsets(r_csr, n_pad)
+    t_row_offsets = _csr_offsets(t_r, n_pad)
     return Graph(
         senders=_pad_idx(s_csr),
         receivers=_pad_idx(r_csr),
         t_senders=_pad_idx(t_s),
         t_receivers=_pad_idx(t_r),
         csc_perm=torch.from_numpy(pad_perm),
-        row_offsets=torch.from_numpy(_csr_offsets(r_csr, n_pad)),
-        t_row_offsets=torch.from_numpy(_csr_offsets(t_r, n_pad)),
+        row_offsets=torch.from_numpy(row_offsets),
+        t_row_offsets=torch.from_numpy(t_row_offsets),
         node_mask=torch.arange(n_pad) < n_valid,
         num_nodes=n_pad,
         n_edge=e,
         edge_weight=None if ew is None else torch.from_numpy(ew),
         t_edge_weight=None if ew is None else torch.from_numpy(ew[pad_perm]),
         node_scale=None if node_scale is None else torch.from_numpy(node_scale),
+        row_split=build_row_split(row_offsets),
+        t_row_split=build_row_split(t_row_offsets),
     )
 
 

@@ -1,0 +1,135 @@
+"""The deterministic split of long CSR rows into fixed chunks of edges.
+
+A power-law graph has a few rows that hold a large share of the edges (at
+ogbn-arxiv shape 309 of 169,343 rows hold 41%). A kernel that gives each
+output row one owner waits for the owner of the longest row. The split
+keeps one owner per output element and no float atomics:
+
+* a row with at most ``threshold`` edges is summed by its one owner;
+* a longer row is cut into chunks of ``threshold`` consecutive CSR edges.
+  Each chunk is summed on its own into one *partial* row, and a second pass
+  sums each long row's partials in chunk order.
+
+Which rows are long and where their chunks lie depends on ``row_offsets``
+alone, so the schedule is built once per graph and direction on the host
+(:func:`build_row_split`, called by ``build_graph``) and carried by the
+:class:`~efficient_gnns_tpu_torch.graphs.container.Graph` as ``row_split`` /
+``t_row_split``: the counterpart of the JAX container's ``blocking`` /
+``t_blocking``. The kernels K1 and K2 (``ops/cuda/csrc/segment_split.cuh``)
+walk it; :func:`segment_sum_by_split` executes the same schedule in plain
+PyTorch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+# Edges per chunk, and the longest row that keeps a single owner. Measured at
+# ogbn-arxiv shape on an H100 (chip_smoke.py's threshold sweep, PERF.md): 64
+# to 256 lie within 5% of each other for K1 and K2; 32 writes four times the
+# partials and 2,048 leaves the units too unequal (K1 twice as slow).
+ROW_SPLIT_THRESHOLD = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class RowSplit:
+    """The chunk schedule of one CSR ``row_offsets``.
+
+    Attributes:
+      long_rows: int32[L] ids of the rows with more than ``threshold`` edges,
+        ascending.
+      chunks: int32[C, 3] ``(row, begin, end)`` of each chunk, a range of CSR
+        edges inside one long row, in (row, chunk) order. Chunk ``c`` writes
+        partial slot ``c``.
+      long_first: int32[L + 1] first partial slot of each long row;
+        ``long_rows[l]`` owns slots ``long_first[l]:long_first[l + 1]``.
+      threshold: edges per chunk.
+      num_rows, num_edges: the shape of the ``row_offsets`` it was built from
+        (``num_edges == row_offsets[-1]``, the real edges).
+    """
+
+    long_rows: torch.Tensor
+    chunks: torch.Tensor
+    long_first: torch.Tensor
+    threshold: int
+    num_rows: int
+    num_edges: int
+
+    @property
+    def num_long(self) -> int:
+        return self.long_rows.shape[0]
+
+    @property
+    def num_chunks(self) -> int:
+        return self.chunks.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.chunks.device
+
+    def to(self, device) -> "RowSplit":
+        """A copy with every tensor on ``device``."""
+        return dataclasses.replace(
+            self, long_rows=self.long_rows.to(device), chunks=self.chunks.to(device),
+            long_first=self.long_first.to(device))
+
+
+def build_row_split(row_offsets, threshold: int = ROW_SPLIT_THRESHOLD) -> RowSplit:
+    """The :class:`RowSplit` of ``row_offsets`` (int[N + 1], a NumPy array or
+    a tensor on any device), built with NumPy on the host; the result lies on
+    the CPU. ``threshold`` is for tests, which force small chunks; the kernels
+    are measured at the default."""
+    if isinstance(row_offsets, torch.Tensor):
+        row_offsets = row_offsets.detach().cpu().numpy()
+    ro = np.asarray(row_offsets, dtype=np.int64)
+    if ro.ndim != 1 or ro.size < 1 or threshold < 1:
+        raise ValueError("build_row_split needs row_offsets [N + 1] and threshold >= 1")
+    deg = np.diff(ro)
+    long_rows = np.flatnonzero(deg > threshold)
+    per_row = -(-deg[long_rows] // threshold)
+    long_first = np.zeros(long_rows.size + 1, dtype=np.int64)
+    np.cumsum(per_row, out=long_first[1:])
+    chunk_row = np.repeat(long_rows, per_row)
+    k = np.arange(chunk_row.size) - np.repeat(long_first[:-1], per_row)
+    begin = ro[chunk_row] + k * threshold
+    end = np.minimum(begin + threshold, ro[chunk_row + 1])
+    chunks = np.stack([chunk_row, begin, end], axis=1).astype(np.int32)
+    return RowSplit(
+        long_rows=torch.from_numpy(long_rows.astype(np.int32)),
+        chunks=torch.from_numpy(chunks.reshape(-1, 3)),
+        long_first=torch.from_numpy(long_first.astype(np.int32)),
+        threshold=int(threshold), num_rows=int(ro.size - 1), num_edges=int(ro[-1]),
+    )
+
+
+def segment_sum_by_split(msgs: torch.Tensor, row_offsets: torch.Tensor,
+                         split: RowSplit) -> torch.Tensor:
+    """``out[r] = sum of msgs[row_offsets[r]:row_offsets[r + 1]]`` computed as
+    the kernels compute it, in plain PyTorch: short rows from ``row_offsets``,
+    long rows from the schedule alone (each chunk's partial row, then each
+    long row's partials summed in slot order). ``msgs`` is ``[E, F]``, the
+    gathered and scaled rows of the real edges."""
+    num_rows = row_offsets.numel() - 1
+    dev = msgs.device
+    deg = (row_offsets[1:] - row_offsets[:-1]).long()
+    rows = torch.repeat_interleave(torch.arange(num_rows, device=dev), deg,
+                                   output_size=msgs.shape[0])
+    short = (deg <= split.threshold)[rows]
+    out = msgs.new_zeros((num_rows, msgs.shape[1]))
+    out.index_add_(0, rows[short], msgs[short])
+    chunks = split.chunks.long()
+    size = chunks[:, 2] - chunks[:, 1]
+    total = int(size.sum())
+    chunk_of = torch.repeat_interleave(torch.arange(split.num_chunks, device=dev), size,
+                                       output_size=total)
+    start = torch.cumsum(size, 0) - size  # first position of each chunk's edges
+    edge = chunks[chunk_of, 1] + torch.arange(total, device=dev) - start[chunk_of]
+    partials = msgs.new_zeros((split.num_chunks, msgs.shape[1]))
+    partials.index_add_(0, chunk_of, msgs[edge])
+    first = split.long_first.long()
+    owner = torch.repeat_interleave(split.long_rows.long(), first[1:] - first[:-1],
+                                    output_size=split.num_chunks)
+    return out.index_add_(0, owner, partials)

@@ -72,7 +72,8 @@ class _GATAttention(torch.autograd.Function):
         a_drop = a
         if attn_keep is not None:
             a_drop = torch.where(attn_keep, a / attn_keep_prob, 0.0)
-        out = csr_segment_sum_heads(xf, a_drop, graph.senders, graph.row_offsets)
+        out = csr_segment_sum_heads(xf, a_drop, graph.senders, graph.row_offsets,
+                                    graph.row_split)
         ctx.save_for_backward(xf, a, a_drop, lrelu_g, attn_keep)
         ctx.graph, ctx.has_er = graph, er is not None
         ctx.attn_keep_prob, ctx.dtypes = attn_keep_prob, (feat.dtype, el.dtype)
@@ -97,7 +98,7 @@ class _GATAttention(torch.autograd.Function):
         perm = graph.csc_perm.long()
         del_ = csr_segment_sum_thin(de[perm], graph.t_row_offsets).to(ctx.dtypes[1])
         dx = csr_segment_sum_heads(gf, a_drop[perm], graph.t_senders,
-                                   graph.t_row_offsets)
+                                   graph.t_row_offsets, graph.t_row_split)
         return (dx.view(n, h, -1).to(ctx.dtypes[0]), del_, der,
                 None, None, None, None, None)
 

@@ -1,7 +1,8 @@
 // Loads of V contiguous elements of a feature row into float registers,
-// shared by the kernels that gather rows (K1 segment_sum.cu, K3
-// segment_sddmm.cu). V > 1 is one 16-byte load and needs a 16-byte aligned
-// address (the wrappers pick V = 1 otherwise).
+// shared by the kernels that gather rows (K1 and K2 through
+// segment_split.cuh, K3 segment_sddmm.cu). V > 1 is one load of V elements
+// (16 bytes; 8 for two floats) and needs an address aligned to its size (the
+// wrappers pick a smaller V otherwise).
 
 #pragma once
 
@@ -18,6 +19,15 @@ template <>
 struct Loader<float, 1> {
   __device__ __forceinline__ static void load(const float* p, float* v) {
     v[0] = __ldg(p);
+  }
+};
+
+template <>
+struct Loader<float, 2> {
+  __device__ __forceinline__ static void load(const float* p, float* v) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
   }
 };
 

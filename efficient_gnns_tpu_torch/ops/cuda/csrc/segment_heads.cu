@@ -13,16 +13,17 @@
 // 2*H*D per edge against H*D*4 gathered bytes, far below the card's
 // flop:byte ratio.
 //
-// K2 design: K1's, one owner per output slice: a warp owns one (row, head)
-// pair, so there are no float atomics and the result is deterministic
-// (summation in edge order), and a row's heads run on H warps side by side.
-// The warp loads 32 edge indices and their head weights at once, one edge per
-// lane, and broadcasts them with shuffles; the weight is uniform across the
-// warp, and each lane keeps the float32 sums of KD columns (lane, lane+32,
-// ...) of the head in registers, issuing the KD loads of an edge before its
-// KD multiply-adds. D is not padded to 128 (the TPU's lanes) and need not be
-// a multiple of 4: loads are 4-byte, neighbouring lanes on neighbouring
-// columns. Hub rows serialize on their warps, as in K1.
+// K2 design: the two passes of segment_split.cuh. One owner per output
+// element and no float atomics, so the result is deterministic. A task is a
+// (row, head) pair, or a (chunk, head) pair for a power-law hub row, which
+// the graph's RowSplit cuts into chunks of `threshold` edges that are summed
+// as independent units into partial rows; a second kernel adds them in a
+// fixed order. A task is owned by a group of 8, 16 or 32 lanes (picked from
+// D), the head weight uniform across the group, and each lane starts the
+// loads of several edges before their multiply-adds. D is not padded to 128
+// (the TPU's lanes): a lane loads 16 bytes where D is a multiple of 4, 8
+// bytes where it is even (D = 250: a head starts at a multiple of 1,000
+// bytes), else 4.
 //
 // K4 design: one warp per edge. Every output belongs to one edge, so edge
 // ownership has no hub imbalance (row ownership would keep g[r] in registers
@@ -34,66 +35,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segment_split.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFullMask = 0xffffffffu;
-
-template <int KD>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_segment_sum_heads_kernel(const float* __restrict__ x,
-                             const float* __restrict__ w,
-                             const int32_t* __restrict__ src,
-                             const int32_t* __restrict__ row_offsets,
-                             float* __restrict__ out, int num_rows,
-                             int num_heads, int d) {
-  const int lane = threadIdx.x & 31;
-  const int64_t task = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (task >= static_cast<int64_t>(num_rows) * num_heads) return;  // uniform across the warp
-  const int row = static_cast<int>(task / num_heads);
-  const int h = static_cast<int>(task - static_cast<int64_t>(row) * num_heads);
-  const size_t hd = static_cast<size_t>(num_heads) * d;
-  const int begin = row_offsets[row];
-  const int end = row_offsets[row + 1];
-  const float* x_h = x + static_cast<size_t>(h) * d + lane;
-  float* out_h = out + row * hd + static_cast<size_t>(h) * d + lane;
-
-  // every lane runs every pass so the shuffles see the full warp
-  for (int pass = 0; pass < d; pass += 32 * KD) {
-    float acc[KD];
-#pragma unroll
-    for (int k = 0; k < KD; ++k) acc[k] = 0.f;
-
-    for (int base = begin; base < end; base += 32) {
-      const int e = base + lane;
-      int s = 0;
-      float we = 0.f;
-      if (e < end) {
-        s = src[e];
-        we = w[static_cast<size_t>(e) * num_heads + h];
-      }
-      const int n = min(32, end - base);
-#pragma unroll 4
-      for (int j = 0; j < n; ++j) {
-        const int sj = __shfl_sync(kFullMask, s, j);
-        const float wj = __shfl_sync(kFullMask, we, j);
-        const float* xr = x_h + sj * hd + pass;
-        float v[KD];  // all loads first: KD rows segments in flight at once
-#pragma unroll
-        for (int k = 0; k < KD; ++k) {
-          v[k] = pass + lane + 32 * k < d ? __ldg(xr + 32 * k) : 0.f;
-        }
-#pragma unroll
-        for (int k = 0; k < KD; ++k) acc[k] = fmaf(wj, v[k], acc[k]);
-      }
-    }
-
-#pragma unroll
-    for (int k = 0; k < KD; ++k) {
-      if (pass + lane + 32 * k < d) out_h[pass + 32 * k] = acc[k];
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 csr_sddmm_heads_kernel(const float* __restrict__ g, const float* __restrict__ x,
@@ -126,48 +73,39 @@ csr_sddmm_heads_kernel(const float* __restrict__ g, const float* __restrict__ x,
   }
 }
 
-template <int KD>
-void launch_heads(const float* x, const float* w, const int32_t* src,
-                  const int32_t* row_offsets, float* out, int num_rows,
-                  int num_heads, int d, cudaStream_t stream) {
-  const int64_t tasks = static_cast<int64_t>(num_rows) * num_heads;
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid(static_cast<unsigned>((tasks + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  csr_segment_sum_heads_kernel<KD><<<grid, block, 0, stream>>>(
-      x, w, src, row_offsets, out, num_rows, num_heads, d);
-}
-
 }  // namespace
 
 extern "C" {
 
 // x: float32 [*, num_heads * d], w: float32 [E_pad, num_heads], src and
-// row_offsets int32; out: float32 [num_rows, num_heads * d].
-// Returns cudaGetLastError().
-int egt_csr_segment_sum_heads(const void* x, const void* w, const void* src,
-                              const void* row_offsets, void* out, int num_rows,
-                              int num_heads, int d, void* stream) {
-  if (num_heads < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_rows > 0) {
-    const float* xf = static_cast<const float*>(x);
-    const float* wf = static_cast<const float*>(w);
-    const int32_t* s = static_cast<const int32_t*>(src);
-    const int32_t* ro = static_cast<const int32_t*>(row_offsets);
-    float* o = static_cast<float*>(out);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    // the fewest columns per lane that cover a head in one pass; wider heads
-    // take several passes of 256 columns
-    if (d <= 32) {
-      launch_heads<1>(xf, wf, s, ro, o, num_rows, num_heads, d, st);
-    } else if (d <= 64) {
-      launch_heads<2>(xf, wf, s, ro, o, num_rows, num_heads, d, st);
-    } else if (d <= 128) {
-      launch_heads<4>(xf, wf, s, ro, o, num_rows, num_heads, d, st);
-    } else {
-      launch_heads<8>(xf, wf, s, ro, o, num_rows, num_heads, d, st);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+// row_offsets int32; out: float32 [num_rows, num_heads * d]. vec: floats per
+// lane load (4, 2 or 1); the caller picks the largest that divides d with x
+// aligned to vec floats. chunks [num_chunks, 3], long_rows [num_long] and
+// long_first [num_long + 1] are the row split of row_offsets at `threshold`;
+// partial is float32 scratch [num_chunks, num_heads * d]. Returns the first
+// launch's error, else cudaGetLastError().
+int egt_csr_segment_sum_heads(const void* x, const void* w, int vec,
+                              const void* src, const void* row_offsets,
+                              const void* chunks, const void* long_rows,
+                              const void* long_first, void* out, void* partial,
+                              int num_rows, int num_chunks, int num_long,
+                              int num_heads, int d, int threshold, void* stream) {
+  if (num_heads < 1 || d < 1 || w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const SplitArgs a{x,
+                    static_cast<const int32_t*>(src),
+                    static_cast<const float*>(w),
+                    static_cast<const int32_t*>(row_offsets),
+                    static_cast<const int32_t*>(chunks),
+                    static_cast<const int32_t*>(long_rows),
+                    static_cast<const int32_t*>(long_first),
+                    static_cast<float*>(out),
+                    static_cast<float*>(partial),
+                    num_rows, num_chunks, num_long, num_heads, d, threshold,
+                    static_cast<cudaStream_t>(stream)};
+  if (vec == 4) return launch_split<float, 4>(a);
+  if (vec == 2) return launch_split<float, 2>(a);
+  if (vec == 1) return launch_split<float, 1>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // g: float32 [num_rows, num_heads * d] (rows by receiver), x: float32

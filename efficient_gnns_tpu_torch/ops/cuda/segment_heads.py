@@ -7,9 +7,11 @@ plain versions.
 K2 replaces ``efficient_gnns_tpu/ops/pallas/segment_matmul.py::
 blocked_segment_sum_heads`` and K4 ``blocked_sddmm_dw_heads`` (with the XLA
 row gathers in front of them). The CUDA kernels are ``csrc/segment_heads.cu``:
-both bounded by device-memory bytes; K2 gives one warp each (output row,
-head) pair (no float atomics, deterministic, hub rows serialize on their
-warps), K4 one warp each edge (no hub imbalance). Features are float32
+both bounded by device-memory bytes; K2 gives each (output row, head) pair
+one owner (no float atomics, deterministic) and sums a power-law hub row as
+chunks into partial rows that a second kernel adds in a fixed order
+(``csrc/segment_split.cuh``, ``graphs/row_split.py``), K4 one warp each edge
+(no hub imbalance). Features are float32
 ``[rows, H*D]`` with the heads side by side (no padding of D), head weights
 float32 ``[E_pad, H]``, indices int32.
 
@@ -20,10 +22,13 @@ tensors on a CUDA device; they never move work between them.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from efficient_gnns_tpu_torch.graphs.row_split import RowSplit
 from efficient_gnns_tpu_torch.ops.cuda import build
+from efficient_gnns_tpu_torch.ops.cuda.segment_sum import check_split, derive_split, float_vec
 from efficient_gnns_tpu_torch.ops.segment import csr_row_ids, gather
 
 _CHUNK_ELEMENTS = 1 << 27  # plain versions gather at most this many floats at once
@@ -33,7 +38,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("segment_heads")
     if lib.egt_csr_segment_sum_heads.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.egt_csr_segment_sum_heads.argtypes = [p, p, p, p, p, i, i, i, p]
+        lib.egt_csr_segment_sum_heads.argtypes = [p, p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.egt_csr_segment_sum_heads.restype = i
         lib.egt_csr_sddmm_heads.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
         lib.egt_csr_sddmm_heads.restype = i
@@ -77,14 +82,17 @@ def csr_segment_sum_heads_plain(x, w, src, row_offsets) -> torch.Tensor:
     return out
 
 
-def csr_segment_sum_heads(x, w, src, row_offsets) -> torch.Tensor:
+def csr_segment_sum_heads(x, w, src, row_offsets,
+                          split: Optional[RowSplit] = None) -> torch.Tensor:
     """float32[num_rows, H*D] multi-head CSR segment sums (K2).
 
     ``x`` is ``[*, H*D]`` (head ``h`` in columns ``h*D:(h+1)*D``), ``w`` the
     per-edge head weights ``[E_pad, H]`` in the order of ``src``. Edges past
-    ``row_offsets[-1]`` (padding) are never read. On a CUDA tensor this
-    launches the kernel (counted in ``csr_segment_sum_heads.launches``) or
-    raises.
+    ``row_offsets[-1]`` (padding) are never read. ``split`` is the row split
+    of ``row_offsets`` (``Graph.row_split`` / ``Graph.t_row_split``); without
+    it the split is derived here, which costs a host copy per call. On a
+    CUDA tensor this launches the kernels (one call counts one launch in
+    ``csr_segment_sum_heads.launches``) or raises.
     """
     name = "csr_segment_sum_heads"
     _check(name, {"x": x, "w": w}, {"src": src, "row_offsets": row_offsets}, w.shape[1])
@@ -93,17 +101,23 @@ def csr_segment_sum_heads(x, w, src, row_offsets) -> torch.Tensor:
         raise ValueError(f"{name}: x [*, H*D], w [E_pad, H] and "
                          f"src [E_pad] disagree: {tuple(x.shape)}, {tuple(w.shape)}, "
                          f"{tuple(src.shape)}")
+    check_split(name, split, row_offsets, src)
     if x.device.type == "cpu":
         return csr_segment_sum_heads_plain(x, w, src, row_offsets)
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    if split is None:
+        split = derive_split(row_offsets)
     lib = _lib()
-    num_rows = row_offsets.numel() - 1
-    out = torch.empty((num_rows, x.shape[1]), dtype=torch.float32, device=x.device)
+    num_rows, d = row_offsets.numel() - 1, x.shape[1] // h
+    out = torch.empty((num_rows, h * d), dtype=torch.float32, device=x.device)
+    partial = torch.empty((split.num_chunks, h * d), dtype=torch.float32, device=x.device)
     rc = lib.egt_csr_segment_sum_heads(
-        x.data_ptr(), w.data_ptr(), src.data_ptr(), row_offsets.data_ptr(),
-        out.data_ptr(), num_rows, h, x.shape[1] // h,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w.data_ptr(), float_vec(torch.float32, d, x.data_ptr()),
+        src.data_ptr(), row_offsets.data_ptr(), split.chunks.data_ptr(),
+        split.long_rows.data_ptr(), split.long_first.data_ptr(), out.data_ptr(),
+        partial.data_ptr(), num_rows, split.num_chunks, split.num_long, h, d,
+        split.threshold, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.raise_on_error(lib, rc, name)
     csr_segment_sum_heads.launches += 1

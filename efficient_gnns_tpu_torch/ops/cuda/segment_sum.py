@@ -4,10 +4,14 @@
 
 Replaces ``efficient_gnns_tpu/ops/pallas/segment_matmul.py::blocked_segment_sum``
 (and the XLA row gather in front of it, ``ops/spmm.py::_blocked_scatter``).
-The CUDA kernel is ``csrc/segment_sum.cu``: bounded by device-memory bytes;
-one warp owns one output row, so there are no float atomics and the result
-is deterministic. ``x`` is float32 or bfloat16, ``w`` float32 or absent,
-indices int32; accumulation and output are float32.
+The CUDA kernels are ``csrc/segment_sum.cu`` on ``csrc/segment_split.cuh``:
+bounded by device-memory bytes; every output element has one owner, so there
+are no float atomics and the result is deterministic. Rows of at most
+``RowSplit.threshold`` edges are summed whole; a longer (power-law hub) row
+is cut into chunks that are summed into partial rows, which a second kernel
+adds in a fixed order (``graphs/row_split.py``). ``x`` is float32 or
+bfloat16, ``w`` float32 or absent, indices int32; accumulation and output
+are float32.
 
 :func:`csr_segment_sum` runs the plain version for tensors on the CPU and
 the kernel for tensors on a CUDA device; it never moves work between them.
@@ -20,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from efficient_gnns_tpu_torch.graphs.row_split import RowSplit, build_row_split
 from efficient_gnns_tpu_torch.ops.cuda import build
 from efficient_gnns_tpu_torch.ops.segment import csr_row_ids, gather, segment_sum
 
@@ -31,9 +36,9 @@ VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements in one 16-byte load
 def _lib() -> ctypes.CDLL:
     lib = build.load("segment_sum")
     if lib.egt_csr_segment_sum.argtypes is None:
-        p = ctypes.c_void_p
+        p, i = ctypes.c_void_p, ctypes.c_int
         lib.egt_csr_segment_sum.argtypes = [
-            p, ctypes.c_int, ctypes.c_int, p, p, p, p, ctypes.c_int, ctypes.c_int, p,
+            p, i, i, p, p, p, p, p, p, p, p, i, i, i, i, i, p,
         ]
         lib.egt_csr_segment_sum.restype = ctypes.c_int
         lib.egt_cuda_error_string.argtypes = [ctypes.c_int]
@@ -61,6 +66,36 @@ def _check(x, src, row_offsets, w) -> None:
         raise ValueError("int32 indexing: x, src and row_offsets need < 2**31 entries")
 
 
+def float_vec(dtype: torch.dtype, d: int, ptr: int) -> int:
+    """Elements in one lane load of a row of ``d`` columns at address ``ptr``:
+    the widest of 16 bytes, 8 bytes (two floats) or one element that divides
+    ``d`` and to which the address is aligned."""
+    if d % VEC[dtype] == 0 and ptr % 16 == 0:
+        return VEC[dtype]
+    if dtype == torch.float32 and d % 2 == 0 and ptr % 8 == 0:
+        return 2
+    return 1
+
+
+def check_split(name: str, split: Optional[RowSplit], row_offsets: torch.Tensor,
+                src: torch.Tensor) -> None:
+    """Raise unless ``split`` (when given) has the shape and device of the
+    ``row_offsets`` and ``src`` it is used with."""
+    if split is not None and (
+            split.num_rows != row_offsets.numel() - 1 or split.num_edges > src.shape[0]
+            or split.device != row_offsets.device):
+        raise ValueError(
+            f"{name}: row split of {split.num_rows} rows / {split.num_edges} edges on "
+            f"{split.device} does not fit row_offsets [{row_offsets.numel()}] and src "
+            f"[{src.shape[0]}] on {row_offsets.device}")
+
+
+def derive_split(row_offsets: torch.Tensor) -> RowSplit:
+    """The row split of ``row_offsets`` on their device, for a caller that
+    has none: the slow way, one copy to the host and back at every call."""
+    return build_row_split(row_offsets).to(row_offsets.device)
+
+
 def csr_segment_sum_plain(
     x: torch.Tensor,
     src: torch.Tensor,
@@ -83,31 +118,38 @@ def csr_segment_sum(
     src: torch.Tensor,
     row_offsets: torch.Tensor,
     w: Optional[torch.Tensor] = None,
+    split: Optional[RowSplit] = None,
 ) -> torch.Tensor:
     """float32[num_rows, F] CSR segment sums of gathered (scaled) rows.
 
     ``src[row_offsets[r]:row_offsets[r+1]]`` are the rows of ``x`` summed
     into output row ``r``, each scaled by the matching ``w``. Entries of
-    ``src`` past ``row_offsets[-1]`` (padding) are never read. On a CUDA
-    tensor this launches the kernel (and counts the launch in
-    ``csr_segment_sum.launches``) or raises.
+    ``src`` past ``row_offsets[-1]`` (padding) are never read. ``split`` is
+    the row split of ``row_offsets`` (``Graph.row_split`` /
+    ``Graph.t_row_split``); without it the split is derived here, which costs
+    a host copy per call. On a CUDA tensor this launches the kernels (one
+    call counts one launch in ``csr_segment_sum.launches``) or raises; with
+    ``split`` given nothing between the call and the launches waits for the
+    device.
     """
     _check(x, src, row_offsets, w)
+    check_split("csr_segment_sum", split, row_offsets, src)
     if x.device.type == "cpu":
         return csr_segment_sum_plain(x, src, row_offsets, w)
     if x.device.type != "cuda":
         raise ValueError(f"csr_segment_sum runs on cpu or cuda, not {x.device}")
+    if split is None:
+        split = derive_split(row_offsets)
     lib = _lib()
     num_rows, f = row_offsets.numel() - 1, x.shape[1]
     out = torch.empty((num_rows, f), dtype=torch.float32, device=x.device)
-    vec = VEC[x.dtype]
-    if f % vec or x.data_ptr() % 16:
-        vec = 1
+    partial = torch.empty((split.num_chunks, f), dtype=torch.float32, device=x.device)
     rc = lib.egt_csr_segment_sum(
-        x.data_ptr(), DTYPE_CODE[x.dtype], vec, src.data_ptr(),
-        None if w is None else w.data_ptr(), row_offsets.data_ptr(),
-        out.data_ptr(), num_rows, f,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), DTYPE_CODE[x.dtype], float_vec(x.dtype, f, x.data_ptr()),
+        src.data_ptr(), None if w is None else w.data_ptr(), row_offsets.data_ptr(),
+        split.chunks.data_ptr(), split.long_rows.data_ptr(), split.long_first.data_ptr(),
+        out.data_ptr(), partial.data_ptr(), num_rows, split.num_chunks, split.num_long,
+        f, split.threshold, torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.raise_on_error(lib, rc, "csr_segment_sum")
     csr_segment_sum.launches += 1

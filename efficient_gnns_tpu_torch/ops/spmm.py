@@ -4,12 +4,14 @@ trainable edge weights and the factored norm, ``spmm_mean``, and the
 multi-head ``spmm_heads`` with per-call head weights).
 
 ``spmm``'s forward is K1 (``ops/cuda/segment_sum.py``) over the
-receiver-sorted CSR; the gradient with respect to ``x`` is K1 over the
-transpose CSR with the transpose-ordered weights, mirroring
-``_spmm_blocked_static_bwd``; with per-call weights their gradient is K3
-(``ops/cuda/segment_sddmm.py``), mirroring ``_spmm_blocked_bwd``. Messages
-are read in ``dispatch.message_dtype()``; accumulation is float32 and the
-result takes ``x``'s dtype, as in the JAX blocked path.
+receiver-sorted CSR, with the graph's row split (``Graph.row_split``, the
+transpose's for the backward) handed to the kernels; the gradient with
+respect to ``x`` is K1 over the transpose CSR with the transpose-ordered
+weights, mirroring ``_spmm_blocked_static_bwd``; with per-call weights their
+gradient is K3 (``ops/cuda/segment_sddmm.py``), mirroring
+``_spmm_blocked_bwd``. Messages are read in ``dispatch.message_dtype()``;
+accumulation is float32 and the result takes ``x``'s dtype, as in the JAX
+blocked path.
 
 ``spmm_heads`` mirrors ``_spmm_heads_blocked``: the forward is K2
 (``ops/cuda/segment_heads.py``) over the CSR, ``dx`` is K2 over the
@@ -34,9 +36,9 @@ from efficient_gnns_tpu_torch.ops.cuda import (
 )
 
 
-def _aggregate(values, senders, row_offsets, weight, msg_dtype, out_dtype):
+def _aggregate(values, senders, row_offsets, weight, split, msg_dtype, out_dtype):
     msgs = values.to(msg_dtype).contiguous()
-    return csr_segment_sum(msgs, senders, row_offsets, weight).to(out_dtype)
+    return csr_segment_sum(msgs, senders, row_offsets, weight, split).to(out_dtype)
 
 
 class _SpMMStatic(torch.autograd.Function):
@@ -46,7 +48,7 @@ class _SpMMStatic(torch.autograd.Function):
     def forward(ctx, x, graph: Graph, msg_dtype):
         ctx.graph, ctx.msg_dtype = graph, msg_dtype
         return _aggregate(x, graph.senders, graph.row_offsets, graph.edge_weight,
-                          msg_dtype, x.dtype)
+                          graph.row_split, msg_dtype, x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -54,7 +56,7 @@ class _SpMMStatic(torch.autograd.Function):
             return None, None, None
         graph = ctx.graph
         dx = _aggregate(g, graph.t_senders, graph.t_row_offsets,
-                        graph.t_edge_weight, ctx.msg_dtype, g.dtype)
+                        graph.t_edge_weight, graph.t_row_split, ctx.msg_dtype, g.dtype)
         return dx, None, None
 
 
@@ -69,7 +71,8 @@ class _SpMMRuntime(torch.autograd.Function):
         ctx.save_for_backward(x, wf)
         ctx.graph, ctx.msg_dtype, ctx.weight_grad = graph, msg_dtype, weight_grad
         ctx.w_dtype = w.dtype
-        return _aggregate(x, graph.senders, graph.row_offsets, wf, msg_dtype, x.dtype)
+        return _aggregate(x, graph.senders, graph.row_offsets, wf, graph.row_split,
+                          msg_dtype, x.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -79,7 +82,7 @@ class _SpMMRuntime(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             w_t = wf[graph.csc_perm.long()].contiguous()
             dx = _aggregate(g, graph.t_senders, graph.t_row_offsets, w_t,
-                            msg_dtype, x.dtype)
+                            graph.t_row_split, msg_dtype, x.dtype)
         if ctx.needs_input_grad[1] and ctx.weight_grad:
             dw = csr_sddmm(
                 g.to(msg_dtype).contiguous(), x.to(msg_dtype).contiguous(),
@@ -176,7 +179,8 @@ class _SpMMHeads(torch.autograd.Function):
         wf = w.float().contiguous()
         ctx.save_for_backward(xf, wf)
         ctx.graph, ctx.x_dtype, ctx.w_dtype = graph, x.dtype, w.dtype
-        out = csr_segment_sum_heads(xf, wf, graph.senders, graph.row_offsets)
+        out = csr_segment_sum_heads(xf, wf, graph.senders, graph.row_offsets,
+                                    graph.row_split)
         return out.view(n, h, d).to(x.dtype)
 
     @staticmethod
@@ -188,7 +192,8 @@ class _SpMMHeads(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             w_t = wf[graph.csc_perm.long()].contiguous()
-            dx = csr_segment_sum_heads(gf, w_t, graph.t_senders, graph.t_row_offsets)
+            dx = csr_segment_sum_heads(gf, w_t, graph.t_senders, graph.t_row_offsets,
+                                       graph.t_row_split)
             dx = dx.view(n, h, -1).to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
             dw = csr_sddmm_heads(gf, xf, graph.senders, graph.receivers,

@@ -333,17 +333,24 @@ def cuda_device():
 @pytest.mark.gpu
 @pytest.mark.parametrize("heads,d", [(3, 250), (1, 40), (3, 5)])
 def test_attention_kernels_match_plain_on_card(rng, cuda_device, heads, d):
+    # receiver 3 and sender 11 own 750 edges each: hub rows of both orders,
+    # which the row split cuts into chunks
     s, r = _edges(rng, e=3000)
     g = build_graph(s, r, N, edge_pad_multiple=512).to(cuda_device)
+    assert g.row_split.num_long >= 1 and g.t_row_split.num_long >= 1
     x = torch.randn(N, heads * d, device=cuda_device)
     gg = torch.randn(N, heads * d, device=cuda_device)
     w = torch.randn(g.num_edges_padded, heads, device=cuda_device)
     vals = torch.randn(N, heads, device=cuda_device)
-    for src, dst, ro in ((g.senders, g.receivers, g.row_offsets),
-                         (g.t_senders, g.t_receivers, g.t_row_offsets)):
+    for src, dst, ro, split in ((g.senders, g.receivers, g.row_offsets, g.row_split),
+                                (g.t_senders, g.t_receivers, g.t_row_offsets,
+                                 g.t_row_split)):
         close = dict(rtol=1e-5, atol=1e-4)
-        torch.testing.assert_close(csr_segment_sum_heads(x, w, src, ro),
-                                   csr_segment_sum_heads_plain(x, w, src, ro), **close)
+        got = csr_segment_sum_heads(x, w, src, ro, split)
+        torch.testing.assert_close(got, csr_segment_sum_heads_plain(x, w, src, ro), **close)
+        # the same bits at every launch, and with the split derived at the call
+        assert torch.equal(got, csr_segment_sum_heads(x, w, src, ro, split))
+        assert torch.equal(got, csr_segment_sum_heads(x, w, src, ro))
         torch.testing.assert_close(csr_sddmm_heads(gg, x, src, dst, ro, heads),
                                    csr_sddmm_heads_plain(gg, x, src, dst, ro, heads), **close)
         torch.testing.assert_close(csr_segment_sum_thin(w, ro),
