@@ -26,8 +26,10 @@ it imports nothing of JAX. Phases, each of which must pass:
 6. K2, K4, K5, K6 and K7 (the GAT attention kernels) against their plain
    versions at the teacher's arxiv shapes (H = 3 heads of D = 250 and the
    last layer's H = 1, D = 40; forward and transpose CSR), with their times,
-   the plain versions', one library yardstick's each and their bounds; K2
-   is held to the same bits over two launches and without the row split;
+   the plain versions', one library yardstick's each and their bounds; K2,
+   K5 and K6 are held to the same bits over two launches and without the
+   row split; K5-K7, a few microseconds each, are also timed with the host's
+   cost of a call hidden (``device alone``), beside an empty launch;
 7. small-input reference: the teacher trainer on the card against the same
    trainer on the CPU (dropouts 0, no label split);
 8. the teacher slice: ``efficient_gnns_tpu_torch.cli.gat_teacher`` trains
@@ -49,14 +51,19 @@ it imports nothing of JAX. Phases, each of which must pass:
     forward and backward on the card at arxiv shape, F = 256, with K1's and
     K3's launch counters read around it, ``dx`` and ``dw`` held against the
     same call on the CPU, and ``weight_grad=False`` (zero ``dw``, no K3);
-12. the row split's edges: K1 and K2 on small made-up graphs on the card
-    against their plain versions (one row holding every edge; rows of
+12. the row split's edges: K1, K2, K5 and K6 on small made-up graphs on the
+    card against their plain versions (one row holding every edge; rows of
     exactly T, T + 1, 2T and 2T + 1 edges; empty rows before, between and
     after long rows; the last row long; F in {1, 33, 40, 250, 256}, float32
     and bfloat16, weighted and unweighted for K1; (H, D) in {(1, 40),
-    (3, 250), (4, 33)} for K2), each launched twice for the same bits;
-13. K1 and K2 at other chunk sizes than the one the graph is built with
-    (times only: what ``ROW_SPLIT_THRESHOLD`` was chosen from).
+    (3, 250), (4, 33)} for K2; H in {1, 3, 8} for K5 and K6), each launched
+    twice for the same bits; K7 on the same graphs with an ``E_pad`` that is
+    no multiple of 4 and ``dst`` at an address that is not 16-byte aligned;
+13. K1, K2 and K5 at other chunk sizes than the one the graph is built with
+    (times only: what ``ROW_SPLIT_THRESHOLD`` was chosen from);
+14. K5 and K6 rebuilt with other lane-group widths and loads in flight
+    (times only: what the constants of ``csrc/segment_thin.cu`` were chosen
+    from).
 
 ``--only a,b`` runs the named phases alone (see ``main``). The last lines
 are the kernels' JSON record, the ``nvidia-smi`` line and
@@ -133,6 +140,46 @@ def _time_ms(fn, reps=None, budget_ms=1500.0):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, reps=50):
+    """Mean device time of ``fn`` over ``reps`` launches (the least of three
+    such means) that are queued behind a few milliseconds of device sleep, so
+    that the host's cost of a call (checks, allocation, the launch itself) is
+    hidden and the events time the device alone, launch gaps included. For
+    kernels of a few microseconds, whose back-to-back time (``_time_ms``) is
+    the host's."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):  # the least of three: a stall of the host shows as a longer one
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(8_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def _host_us(fn, reps=200):
+    """Host clock per call of ``fn`` while the device keeps up (no wait
+    inside): what the caller's thread pays to queue one launch."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
 
 
 def phase_device():
@@ -439,38 +486,61 @@ def phase_attention_kernels(graph):
             # K5 / K6: thin segment sum and max; K7: rows back to the edges
             offsets = ro.long()
             thin_bytes = e * h * 4 + (n + 1) * 4 + n * h * 4
-            got = K.csr_segment_sum_thin(v, ro)
-            want = K.csr_segment_reduce_thin_plain(v, ro, "sum")
-            scale = K.csr_segment_reduce_thin_plain(v.abs(), ro, "sum")
-            diff = (got - want).abs()
-            record("K5", f"csr_segment_sum_thin {tag}", "segment_thin.cu",
-                   "segment_thin.py:114", float(diff.max()),
-                   bool((diff <= TOL + TOL * scale).all()),
-                   lambda: K.csr_segment_sum_thin(v, ro),
-                   lambda: K.csr_segment_reduce_thin_plain(v, ro, "sum"),
-                   _library_ms("K5 (segment_reduce sum)", lambda: torch.segment_reduce(
-                       v[:e], "sum", offsets=offsets)),
-                   thin_bytes, e * h, {"N": n, "E": e, "H": h})
-            got = K.csr_segment_max_thin(v, ro)
-            want = K.csr_segment_reduce_thin_plain(v, ro, "max")
-            record("K6", f"csr_segment_max_thin {tag}", "segment_thin.cu",
-                   "segment_thin.py:186", float((got - want).abs().max()),
-                   bool(torch.equal(got, want)),
-                   lambda: K.csr_segment_max_thin(v, ro),
-                   lambda: K.csr_segment_reduce_thin_plain(v, ro, "max"),
-                   _library_ms("K6 (segment_reduce max)", lambda: torch.segment_reduce(
-                       v[:e], "max", offsets=offsets)),
-                   thin_bytes, e * h, {"N": n, "E": e, "H": h})
+            thin_shape = {"N": n, "E": e, "H": h}
+
+            def thin(kernel, name, replaces, design, err, ok, fn, plain, lib_name, lib_fn,
+                     n_bytes, n_ops):
+                """One record of K5-K7, with the device-only times beside the
+                back-to-back ones (which, at these sizes, are the host's)."""
+                record(kernel, f"{name} {tag}", "segment_thin.cu", replaces, err, ok, fn,
+                       plain, _library_ms(f"{kernel} ({lib_name})", lib_fn), n_bytes, n_ops,
+                       thin_shape)
+                records[-1].update(redesigned=design, device_ms=_device_ms(fn),
+                                   library_device_ms=_device_ms(lib_fn))
+                print(f"  {kernel} {tag}: device alone ms={records[-1]['device_ms']:.4f} "
+                      f"{lib_name} {records[-1]['library_device_ms']:.4f}", flush=True)
+
+            for kernel, fn, op, line in (("K5", K.csr_segment_sum_thin, "sum", 114),
+                                         ("K6", K.csr_segment_max_thin, "max", 186)):
+                got = fn(v, ro, sp)
+                want = K.csr_segment_reduce_thin_plain(v, ro, op)
+                diff = (got - want).abs()
+                if op == "sum":  # tolerance on each row's sum of |terms|
+                    scale = K.csr_segment_reduce_thin_plain(v.abs(), ro, "sum")
+                    ok = bool((diff <= TOL + TOL * scale).all())
+                else:
+                    ok = torch.equal(got, want)
+                same_bits = torch.equal(got, fn(v, ro, sp))
+                no_split = torch.equal(got, fn(v, ro))
+                print(f"  {kernel} {tag}: two launches {'equal' if same_bits else 'DIFFER'}, "
+                      f"without split {'equal' if no_split else 'DIFFERS'}", flush=True)
+                if not (same_bits and no_split):
+                    failures.append(
+                        f"{kernel} {tag}: not the same bits twice or without the split")
+                thin(kernel, fn.__name__, f"segment_thin.py:{line}", "row split, lane groups",
+                     float(diff.max()), ok, lambda: fn(v, ro, sp),
+                     lambda: K.csr_segment_reduce_thin_plain(v, ro, op),
+                     f"segment_reduce {op}",
+                     lambda: torch.segment_reduce(v[:e], op, offsets=offsets),
+                     thin_bytes, e * h)
             got = K.csr_tile_rows_thin(vals, dst, ro)
             want = K.csr_tile_rows_thin_plain(vals, dst, ro)
-            record("K7", f"csr_tile_rows_thin {tag}", "segment_thin.cu",
-                   "segment_thin.py:145", float((got - want).abs().max()),
-                   bool(torch.equal(got, want)),
-                   lambda: K.csr_tile_rows_thin(vals, dst, ro),
-                   lambda: K.csr_tile_rows_thin_plain(vals, dst, ro),
-                   _library_ms("K7 (index_select)",
-                               lambda: vals.index_select(0, dst[:e])),
-                   n * h * 4 + e * 4 + e_pad * h * 4, 0, {"N": n, "E": e, "H": h})
+            thin("K7", "csr_tile_rows_thin", "segment_thin.py:145", "four floats a thread",
+                 float((got - want).abs().max()), torch.equal(got, want),
+                 lambda: K.csr_tile_rows_thin(vals, dst, ro),
+                 lambda: K.csr_tile_rows_thin_plain(vals, dst, ro),
+                 "index_select", lambda: vals.index_select(0, dst[:e]),
+                 n * h * 4 + e * 4 + e_pad * h * 4, 0)
+            if h == HEADS[0][0] and direction == "fwd":
+                host = {k: _host_us(f) for k, f in (
+                    ("empty launch", lambda: K.segment_thin.empty_launch(DEVICE)),
+                    ("K5", lambda: K.csr_segment_sum_thin(v, ro, sp)),
+                    ("K7", lambda: K.csr_tile_rows_thin(vals, dst, ro)),
+                    ("index_select", lambda: vals.index_select(0, dst[:e])))}
+                print(f"  launch floor: an empty kernel takes "
+                      f"{_device_ms(lambda: K.segment_thin.empty_launch(DEVICE), 200) * 1e3:.2f}"
+                      f" us of device time back to back; host time to queue one call, us: "
+                      + ", ".join(f"{k} {us:.1f}" for k, us in host.items()), flush=True)
             del got, want
     # padding edges lie past row_offsets[N]: poisoned, they must change nothing
     h, d = HEADS[1]
@@ -487,14 +557,26 @@ def phase_attention_kernels(graph):
             K.csr_segment_sum_heads(x, w, g.senders, g.row_offsets, g.row_split)),
         "K4": torch.equal(K.csr_sddmm_heads(x, x, src, dst, g.row_offsets, h),
                           K.csr_sddmm_heads(x, x, g.senders, g.receivers, g.row_offsets, h)),
-        "K5": torch.equal(K.csr_segment_sum_thin(nan_w, g.row_offsets),
-                          K.csr_segment_sum_thin(w, g.row_offsets)),
-        "K6": torch.equal(K.csr_segment_max_thin(nan_w, g.row_offsets),
-                          K.csr_segment_max_thin(w, g.row_offsets)),
+        "K5": torch.equal(K.csr_segment_sum_thin(nan_w, g.row_offsets, g.row_split),
+                          K.csr_segment_sum_thin(w, g.row_offsets, g.row_split)),
+        "K6": torch.equal(K.csr_segment_max_thin(nan_w, g.row_offsets, g.row_split),
+                          K.csr_segment_max_thin(w, g.row_offsets, g.row_split)),
         "K7": torch.equal(K.csr_tile_rows_thin(w[:n], dst, g.row_offsets),
                           K.csr_tile_rows_thin(w[:n], g.receivers, g.row_offsets)),
     }
     failures += [f"{k} read a padding edge" for k, ok in checks.items() if not ok]
+    # a split of other offsets with the same rows and edges (the degrees in
+    # reverse order; this graph is symmetric, so its transpose order will not
+    # do): only its content tells, and the wrapper must refuse it
+    from efficient_gnns_tpu_torch.graphs import build_row_split
+
+    reverse = torch.zeros_like(g.row_offsets)
+    reverse[1:] = torch.cumsum((g.row_offsets[1:] - g.row_offsets[:-1]).flip(0), 0)
+    try:
+        K.csr_segment_sum_thin(w, g.row_offsets, build_row_split(reverse).to(DEVICE))
+        failures.append("K5 took the row split of other offsets")
+    except ValueError:
+        pass
     torch.cuda.synchronize()
     return records, failures
 
@@ -639,15 +721,19 @@ def phase_runtime_spmm(graph):
 
 
 def phase_split_edges():
-    """K1 and K2 at the edges of the row split, on small made-up graphs on
-    the card: each case against the plain version (``TOL + TOL * sum|terms|``)
-    and launched twice for the same bits. Padding edges carry an
-    out-of-range sender and a NaN weight. Returns the failures."""
+    """K1, K2, K5 and K6 at the edges of the row split, on small made-up
+    graphs on the card: each case against the plain version (``TOL + TOL *
+    sum|terms|``; the max exactly) and launched twice for the same bits.
+    Padding edges carry an out-of-range sender and a NaN weight or value. K7
+    on the same graphs, exactly, with an out-of-range ``dst`` on the padding,
+    an ``E_pad`` that is no multiple of 4, and ``dst``
+    as a view that is not 16-byte aligned. Returns the failures."""
     import torch
 
     from efficient_gnns_tpu_torch.graphs import ROW_SPLIT_THRESHOLD as T
     from efficient_gnns_tpu_torch.graphs import build_row_split
     from efficient_gnns_tpu_torch.ops import cuda as K
+    from efficient_gnns_tpu_torch.ops.segment import csr_row_ids
 
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     cases = {
@@ -658,10 +744,12 @@ def phase_split_edges():
     }
     n_src, pad, checks, failures = 97, 37, 0, []
 
-    def hold(tag, got, again, want, scale):
+    def hold(tag, got, again, want, scale=None):
+        """``scale``: each output's sum of |terms|; None for an exact match."""
         nonlocal checks
         checks += 1
-        if not bool(((got - want).abs() <= TOL + TOL * scale).all()):
+        if not (torch.equal(got, want) if scale is None
+                else bool(((got - want).abs() <= TOL + TOL * scale).all())):
             failures.append(f"split edges: {tag} disagrees with the plain version")
         if not torch.equal(got, again):
             failures.append(f"split edges: {tag} differs between two launches")
@@ -699,14 +787,34 @@ def phase_split_edges():
                  K.csr_segment_sum_heads(x, w, src, ro, split),
                  K.csr_segment_sum_heads_plain(x, w, src, ro),
                  K.csr_segment_sum_heads_plain(x.abs(), w.abs(), src, ro))
+        pad7 = pad + ((e + pad) % 4 == 0)  # K7: E_pad no multiple of 4
+        dst = torch.full((e + pad7 + 1,), 2**31 - 1, dtype=torch.int32, device=DEVICE)
+        dst[1:e + 1] = csr_row_ids(ro, e)
+        for h in (1, 3, 8):
+            v = torch.randn(e + pad, h, generator=gen, device=DEVICE)
+            v[e:] = float("nan")
+            hold(f"K5 {case} H={h}", K.csr_segment_sum_thin(v, ro, split),
+                 K.csr_segment_sum_thin(v, ro, split),
+                 K.csr_segment_reduce_thin_plain(v, ro, "sum"),
+                 K.csr_segment_reduce_thin_plain(v.abs(), ro, "sum"))
+            hold(f"K6 {case} H={h}", K.csr_segment_max_thin(v, ro, split),
+                 K.csr_segment_max_thin(v, ro, split),
+                 K.csr_segment_reduce_thin_plain(v, ro, "max"))
+            vals = torch.randn(len(degrees), h, generator=gen, device=DEVICE)
+            for tag, d in (("aligned dst", dst[1:].clone()), ("dst view off by 4 bytes",
+                                                              dst[1:])):
+                assert (d.data_ptr() % 16 == 0) == (tag == "aligned dst") and d.shape[0] % 4
+                hold(f"K7 {case} H={h} {tag}", K.csr_tile_rows_thin(vals, d, ro),
+                     K.csr_tile_rows_thin(vals, d, ro),
+                     K.csr_tile_rows_thin_plain(vals, d, ro))
     torch.cuda.synchronize()
     print(f"split edges: {checks} cases at T={T}, {len(failures)} failed", flush=True)
     return failures
 
 
 def phase_threshold_sweep(graph):
-    """K1 (F = 256 and 40) and K2 (H = 3, D = 250) at arxiv shape with the
-    row split built at other chunk sizes: times only."""
+    """K1 (F = 256 and 40), K2 (H = 3, D = 250) and K5 (H = 3) at arxiv shape
+    with the row split built at other chunk sizes: times only."""
     import torch
 
     from efficient_gnns_tpu_torch.graphs import ROW_SPLIT_THRESHOLD, build_row_split
@@ -724,9 +832,66 @@ def phase_threshold_sweep(graph):
               for f in (256, 40)]
         ms.append(_time_ms(lambda: K.csr_segment_sum_heads(
             xs[750], wh, g.senders, g.row_offsets, sp), 20))
+        ms.append(_device_ms(lambda: K.csr_segment_sum_thin(wh, g.row_offsets, sp)))
         print(f"threshold {t}{' (built in)' if t == ROW_SPLIT_THRESHOLD else ''}: "
               f"{sp.num_long} long rows, {sp.num_chunks} chunks; K1 F=256 {ms[0]:.4f} ms, "
-              f"K1 F=40 {ms[1]:.4f} ms, K2 H=3 D=250 {ms[2]:.4f} ms", flush=True)
+              f"K1 F=40 {ms[1]:.4f} ms, K2 H=3 D=250 {ms[2]:.4f} ms, "
+              f"K5 H=3 {ms[3]:.4f} ms (device alone)", flush=True)
+
+
+# (row group, chunk group, loads in flight) of csrc/segment_thin.cu; the first
+# is the one built in
+THIN_VARIANTS = ((4, 32, 4), (1, 32, 4), (2, 32, 4), (8, 32, 4), (16, 32, 4), (32, 32, 4),
+                 (4, 8, 4), (4, 32, 1), (4, 32, 2), (4, 32, 8))
+
+
+def phase_thin_group_sweep(graph):
+    """K5 and K6 at arxiv shape (forward CSR, H = 3 and 1) rebuilt with other
+    lane-group widths and loads in flight: device times only, and each
+    variant's sum against the built-in kernel's (another summation order, so
+    within the tolerance, not the same bits). What the constants of
+    ``csrc/segment_thin.cu`` were chosen from."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from efficient_gnns_tpu_torch.ops import cuda as K
+    from efficient_gnns_tpu_torch.ops.cuda import build
+
+    def defines(variant):
+        return tuple(f"-DEGT_THIN_{k}={v}" for k, v in
+                     zip(("ROW_GROUP", "CHUNK_GROUP", "LOADS"), variant))
+
+    t0 = time.time()
+    with ThreadPoolExecutor(len(THIN_VARIANTS)) as pool:  # one nvcc each, all at once
+        list(pool.map(lambda v: build.build(["segment_thin"], defines(v)), THIN_VARIANTS))
+    print(f"thin group sweep: {len(THIN_VARIANTS)} variants built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    g = graph.to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    vs = {h: torch.randn(g.num_edges_padded, h, generator=gen, device=DEVICE) for h in (3, 1)}
+    want = {h: K.csr_segment_sum_thin(v, g.row_offsets, g.row_split) for h, v in vs.items()}
+    scale = {h: K.csr_segment_reduce_thin_plain(v.abs(), g.row_offsets, "sum")
+             for h, v in vs.items()}
+    failures = []
+    try:
+        for variant in THIN_VARIANTS:
+            K.segment_thin.BUILD_DEFINES = defines(variant)
+            ms = []
+            for h, v in vs.items():
+                got = K.csr_segment_sum_thin(v, g.row_offsets, g.row_split)
+                if not bool(((got - want[h]).abs() <= TOL + TOL * scale[h]).all()):
+                    failures.append(f"thin group sweep: variant {variant} H={h} disagrees")
+                ms += [_device_ms(lambda: fn(v, g.row_offsets, g.row_split))
+                       for fn in (K.csr_segment_sum_thin, K.csr_segment_max_thin)]
+            print(f"thin groups row={variant[0]} chunk={variant[1]} loads={variant[2]}"
+                  f"{' (built in)' if variant == THIN_VARIANTS[0] else ''}: "
+                  f"K5 H=3 {ms[0]:.4f} ms, K6 H=3 {ms[1]:.4f} ms, K5 H=1 {ms[2]:.4f} ms, "
+                  f"K6 H=1 {ms[3]:.4f} ms (device alone)", flush=True)
+    finally:
+        K.segment_thin.BUILD_DEFINES = ()
+    torch.cuda.synchronize()
+    return failures
 
 
 def _teacher_config(**kw):
@@ -817,11 +982,12 @@ _WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchroniz
           "aten::nonzero")
 
 
-def _profile(tag, chunk, epochs):
+def _profile(tag, chunk, epochs, also=()):
     """``chunk()`` (``epochs`` epochs of a trainer, ending in its one host
     copy) under torch.profiler: wall time, device busy time and idle share,
-    device time by kernel, and the host calls that wait for the device. The
-    table goes to ``OUT_DIR/<tag>_profile.txt``."""
+    device time by kernel (the 14 largest, and every kernel whose name holds
+    one of ``also``), and the host calls that wait for the device. The table
+    goes to ``OUT_DIR/<tag>_profile.txt``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -853,8 +1019,9 @@ def _profile(tag, chunk, epochs):
           f"(profiled), device busy {device_ms:.1f} ms "
           f"({100 * (1 - device_ms / wall_ms):.1f}% idle); host calls that wait for "
           f"the device, the closing synchronize included: {waits}", flush=True)
-    for ev in events[:14]:
-        print(f"  {self_device_us(ev) / 1e3:9.3f} ms  {ev.count:4d}x  {ev.key[:90]}")
+    for i, ev in enumerate(events):
+        if i < 14 or any(name in ev.key for name in also):
+            print(f"  {self_device_us(ev) / 1e3:9.3f} ms  {ev.count:4d}x  {ev.key[:90]}")
 
 
 def _steady_ms(chunk, epochs):
@@ -878,7 +1045,8 @@ def phase_teacher_profile(ds):
     trainer = GATTeacherTrainer(cfg, ds.graph, ds.x, ds.y, ds.split_idx,
                                 ds.num_classes, device=DEVICE)
     best, _ = trainer.run_epochs(1, 1)  # warm-up
-    _profile("teacher", lambda: trainer.run_epochs(2, 1, best), 1)
+    _profile("teacher", lambda: trainer.run_epochs(2, 1, best), 1,
+             also=("thin_reduce", "tile_rows_thin"))
     ms = _steady_ms(lambda: trainer.run_epochs(3, 3, best), 3)
     print(f"teacher steady epoch (3 warm epochs, one chunk, host clock): {ms:.2f} ms",
           flush=True)
@@ -902,7 +1070,7 @@ def phase_student_profile(ds):
 
 
 PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
-          "reference", "teacher_reference", "slice", "teacher_slice", "runtime_spmm",
+          "thin_group_sweep", "reference", "teacher_reference", "slice", "teacher_slice", "runtime_spmm",
           "teacher_profile", "student_profile")
 
 
@@ -953,6 +1121,7 @@ def main(argv=None) -> int:
         records, failures = records + recs, failures + fails
     failures += run("split_edges", phase_split_edges) or []
     run("threshold_sweep", phase_threshold_sweep, ds.graph)
+    failures += run("thin_group_sweep", phase_thin_group_sweep, ds.graph) or []
     if run("reference", phase_reference) is False:
         failures.append("cuda trainer disagrees with the cpu trainer")
     if run("teacher_reference", phase_teacher_reference) is False:

@@ -11,7 +11,7 @@ from efficient_gnns_tpu_torch.graphs.row_split import (
     ROW_SPLIT_THRESHOLD,
     RowSplit,
     build_row_split,
-    segment_sum_by_split,
+    segment_reduce_by_split,
 )
 
 __all__ = [
@@ -24,6 +24,6 @@ __all__ = [
     "gcn_norm_weights",
     "induced_subgraph",
     "pad_length",
-    "segment_sum_by_split",
+    "segment_reduce_by_split",
     "to_bidirected",
 ]

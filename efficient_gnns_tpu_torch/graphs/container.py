@@ -18,7 +18,8 @@ graph build, so the backward SpMM reads it without a per-step permutation.
 There is no ``EdgeBlocking``: receiver-sorted CSR is the layout the CUDA
 kernels walk directly. In its place the graph carries the chunk schedule of
 its long rows in both orders (``row_split`` / ``t_row_split``,
-``graphs/row_split.py``), which K1 and K2 use to split power-law hub rows.
+``graphs/row_split.py``), which K1, K2, K5 and K6 use to split power-law hub
+rows.
 """
 
 from __future__ import annotations
@@ -51,8 +52,8 @@ class Graph:
         ``S = diag(node_scale)`` over the unweighted adjacency
         (``build_graph(gcn_norm="factored")``).
       row_split, t_row_split: the chunk schedules of ``row_offsets`` and
-        ``t_row_offsets`` (``build_graph`` attaches both; without them K1 and
-        K2 derive the schedule at every call, with a host copy).
+        ``t_row_offsets`` (``build_graph`` attaches both; without them K1, K2,
+        K5 and K6 derive the schedule at every call, with a host copy).
     """
 
     senders: torch.Tensor

@@ -16,8 +16,9 @@ alone, so the schedule is built once per graph and direction on the host
 :class:`~efficient_gnns_tpu_torch.graphs.container.Graph` as ``row_split`` /
 ``t_row_split``: the counterpart of the JAX container's ``blocking`` /
 ``t_blocking``. The kernels K1 and K2 (``ops/cuda/csrc/segment_split.cuh``)
-walk it; :func:`segment_sum_by_split` executes the same schedule in plain
-PyTorch.
+and K5 and K6 (``ops/cuda/csrc/segment_thin.cu``) walk it;
+:func:`segment_reduce_by_split` executes the same schedule in plain PyTorch,
+as a sum or a max.
 """
 
 from __future__ import annotations
@@ -105,21 +106,33 @@ def build_row_split(row_offsets, threshold: int = ROW_SPLIT_THRESHOLD) -> RowSpl
     )
 
 
-def segment_sum_by_split(msgs: torch.Tensor, row_offsets: torch.Tensor,
-                         split: RowSplit) -> torch.Tensor:
-    """``out[r] = sum of msgs[row_offsets[r]:row_offsets[r + 1]]`` computed as
-    the kernels compute it, in plain PyTorch: short rows from ``row_offsets``,
-    long rows from the schedule alone (each chunk's partial row, then each
-    long row's partials summed in slot order). ``msgs`` is ``[E, F]``, the
-    gathered and scaled rows of the real edges."""
-    num_rows = row_offsets.numel() - 1
-    dev = msgs.device
+def segment_reduce_by_split(vals: torch.Tensor, row_offsets: torch.Tensor,
+                            split: RowSplit, op: str = "sum") -> torch.Tensor:
+    """``out[r] = sum`` (``op="sum"``) or ``max`` (``op="max"``) of
+    ``vals[row_offsets[r]:row_offsets[r + 1]]``, computed as the kernels
+    compute it, in plain PyTorch: short rows from ``row_offsets``, long rows
+    from the schedule alone (each chunk reduced into its partial slot, then
+    each long row's slots combined). ``vals`` is ``[>= E, F]`` in edge order
+    (for K1 and K2 the gathered and scaled rows of the real edges, for K5 and
+    K6 the edge values); rows past the real edges (padding) are never read. Empty rows give the
+    identity: 0, or float32 lowest for the max."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"op must be 'sum' or 'max', got {op!r}")
+    num_rows, dev = row_offsets.numel() - 1, vals.device
+    init = 0.0 if op == "sum" else float(torch.finfo(vals.dtype).min)
+
+    def reduce_into(out, index, src):
+        if op == "sum":
+            return out.index_add_(0, index, src)
+        return out.scatter_reduce_(0, index[:, None].expand_as(src), src, reduce="amax",
+                                   include_self=True)
+
+    real = vals[:split.num_edges]
     deg = (row_offsets[1:] - row_offsets[:-1]).long()
     rows = torch.repeat_interleave(torch.arange(num_rows, device=dev), deg,
-                                   output_size=msgs.shape[0])
+                                   output_size=split.num_edges)
     short = (deg <= split.threshold)[rows]
-    out = msgs.new_zeros((num_rows, msgs.shape[1]))
-    out.index_add_(0, rows[short], msgs[short])
+    out = reduce_into(vals.new_full((num_rows, vals.shape[1]), init), rows[short], real[short])
     chunks = split.chunks.long()
     size = chunks[:, 2] - chunks[:, 1]
     total = int(size.sum())
@@ -127,9 +140,10 @@ def segment_sum_by_split(msgs: torch.Tensor, row_offsets: torch.Tensor,
                                        output_size=total)
     start = torch.cumsum(size, 0) - size  # first position of each chunk's edges
     edge = chunks[chunk_of, 1] + torch.arange(total, device=dev) - start[chunk_of]
-    partials = msgs.new_zeros((split.num_chunks, msgs.shape[1]))
-    partials.index_add_(0, chunk_of, msgs[edge])
+    partials = reduce_into(vals.new_full((split.num_chunks, vals.shape[1]), init),
+                           chunk_of, vals[edge])
     first = split.long_first.long()
     owner = torch.repeat_interleave(split.long_rows.long(), first[1:] - first[:-1],
                                     output_size=split.num_chunks)
-    return out.index_add_(0, owner, partials)
+    return reduce_into(out, owner, partials)  # the long rows of out still hold init
+

@@ -3,7 +3,8 @@
 
 The JAX package runs this pipeline in the TPU's blocked edge order; the port
 runs the same function over the receiver-sorted CSR, launching a kernel
-wherever the JAX forward and backward call a Pallas function:
+wherever the JAX forward and backward call a Pallas function (K2, K5 and K6
+with the graph's row split of the edge order they walk):
 
 * forward: K7 reads ``er`` onto the edges, K6 takes each row's maximum, K7
   broadcasts it back, K5 sums the exponentials, K7 broadcasts the
@@ -45,11 +46,11 @@ _F32_TINY = float(torch.finfo(torch.float32).tiny)
 def _softmax(e, graph: Graph, slot_mask):
     """Per-receiver softmax of edge logits ``e [E_pad, H]``; 0 where
     ``slot_mask`` is False, which leaves those edges out of the sums."""
-    ro, recv = graph.row_offsets, graph.receivers
+    ro, recv, split = graph.row_offsets, graph.receivers, graph.row_split
     keep = slot_mask[:, None]
-    m = csr_segment_max_thin(torch.where(keep, e, _F32_LOWEST), ro)
+    m = csr_segment_max_thin(torch.where(keep, e, _F32_LOWEST), ro, split)
     z = torch.where(keep, torch.exp(e - csr_tile_rows_thin(m, recv, ro)), 0.0)
-    r = 1.0 / csr_segment_sum_thin(z, ro).clamp_min(_F32_TINY)
+    r = 1.0 / csr_segment_sum_thin(z, ro, split).clamp_min(_F32_TINY)
     return z * csr_tile_rows_thin(r, recv, ro)
 
 
@@ -91,12 +92,14 @@ class _GATAttention(torch.autograd.Function):
         if attn_keep is not None:
             da = torch.where(attn_keep, da / ctx.attn_keep_prob, 0.0)
         # softmax VJP per receiver: de = a * (da - sum_row(a * da))
-        inner = csr_segment_sum_thin((a * da).contiguous(), ro)
+        inner = csr_segment_sum_thin((a * da).contiguous(), ro, graph.row_split)
         de = a * (da - csr_tile_rows_thin(inner, recv, ro)) * lrelu_g
-        der = csr_segment_sum_thin(de, ro).to(ctx.dtypes[1]) if ctx.has_er else None
+        der = (csr_segment_sum_thin(de, ro, graph.row_split).to(ctx.dtypes[1])
+               if ctx.has_er else None)
         # sender side: the edge values move to the transpose order
         perm = graph.csc_perm.long()
-        del_ = csr_segment_sum_thin(de[perm], graph.t_row_offsets).to(ctx.dtypes[1])
+        del_ = csr_segment_sum_thin(de[perm], graph.t_row_offsets,
+                                    graph.t_row_split).to(ctx.dtypes[1])
         dx = csr_segment_sum_heads(gf, a_drop[perm], graph.t_senders,
                                    graph.t_row_offsets, graph.t_row_split)
         return (dx.view(n, h, -1).to(ctx.dtypes[0]), del_, der,

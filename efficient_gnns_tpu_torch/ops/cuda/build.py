@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (plain C
 interface, no PyTorch headers, so a build takes seconds), compiled for
 Hopper (``sm_90a``) at first use. The hash covers the sources and the flags,
 so an edited source is rebuilt. ``build()`` starts one ``nvcc`` per source,
-all at once, and waits for them.
+all at once, and waits for them. ``defines`` (``-D`` flags) build a variant
+of a source under its own hash: how a kernel's constants are measured
+against other values without editing the source.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -27,7 +29,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -41,8 +43,8 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, defines: Iterable[str] = ()) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for fn in sorted(os.listdir(_CSRC)):
         if fn.endswith((".cu", ".cuh")):
             with open(os.path.join(_CSRC, fn), "rb") as f:
@@ -50,17 +52,18 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Compile the named sources, all at once. Returns the compiler's output
-    (``-Xptxas -v`` register and spill report) by name; raises if a build
-    fails."""
+def build(names: Iterable[str] = SOURCES, defines: Iterable[str] = ()) -> Dict[str, str]:
+    """Compile the named sources, all at once, each with the ``-D`` flags in
+    ``defines``. Returns the compiler's output (``-Xptxas -v`` register and
+    spill report) by name; raises if a build fails."""
+    defines = tuple(defines)
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in names:
-        lib = library_path(name)
+        lib = library_path(name, defines)
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
         procs[name] = (lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
@@ -78,14 +81,16 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines: Iterable[str] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (the variant built with
+    ``defines``), built first if needed."""
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        path = library_path(name)
+        path = library_path(*key)
         if not os.path.exists(path):
-            build([name])
-        lib = _loaded[name] = ctypes.CDLL(path)
+            build([name], key[1])
+        lib = _loaded[key] = ctypes.CDLL(path)
     return lib
 
 

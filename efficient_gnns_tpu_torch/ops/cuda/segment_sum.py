@@ -20,6 +20,7 @@ the kernel for tensors on a CUDA device; it never moves work between them.
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Optional
 
 import torch
@@ -77,17 +78,41 @@ def float_vec(dtype: torch.dtype, d: int, ptr: int) -> int:
     return 1
 
 
+# (id(split), address and version of row_offsets) -> split, for the pairs that
+# check_split has compared; an entry goes when its split does
+_checked_splits: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
 def check_split(name: str, split: Optional[RowSplit], row_offsets: torch.Tensor,
-                src: torch.Tensor) -> None:
-    """Raise unless ``split`` (when given) has the shape and device of the
-    ``row_offsets`` and ``src`` it is used with."""
-    if split is not None and (
-            split.num_rows != row_offsets.numel() - 1 or split.num_edges > src.shape[0]
+                edges: torch.Tensor) -> None:
+    """Raise unless ``split`` (when given) is the row split of ``row_offsets``
+    on their device and fits ``edges`` (any per-edge tensor ``[E_pad, ...]``).
+
+    Shape and device are compared at every call. That the schedule was built
+    from these very offsets (and not, say, from the other edge order's, which
+    have the same shape) is checked by building it again, the first time a
+    split meets a ``row_offsets`` tensor: one host copy then, none later.
+    """
+    if split is None:
+        return
+    if (split.num_rows != row_offsets.numel() - 1 or split.num_edges > edges.shape[0]
             or split.device != row_offsets.device):
         raise ValueError(
             f"{name}: row split of {split.num_rows} rows / {split.num_edges} edges on "
-            f"{split.device} does not fit row_offsets [{row_offsets.numel()}] and src "
-            f"[{src.shape[0]}] on {row_offsets.device}")
+            f"{split.device} does not fit row_offsets [{row_offsets.numel()}] and "
+            f"[{edges.shape[0]}] edges on {row_offsets.device}")
+    key = (id(split), row_offsets.data_ptr(), row_offsets._version)
+    if _checked_splits.get(key) is split:
+        return
+    want = build_row_split(row_offsets, split.threshold)
+    if not (want.num_edges == split.num_edges
+            and torch.equal(want.long_rows, split.long_rows.cpu())
+            and torch.equal(want.chunks, split.chunks.cpu())
+            and torch.equal(want.long_first, split.long_first.cpu())):
+        raise ValueError(
+            f"{name}: the row split was not built from these row_offsets "
+            f"(the other edge order's, or another graph's)")
+    _checked_splits[key] = split
 
 
 def derive_split(row_offsets: torch.Tensor) -> RowSplit:
@@ -130,7 +155,7 @@ def csr_segment_sum(
     a host copy per call. On a CUDA tensor this launches the kernels (one
     call counts one launch in ``csr_segment_sum.launches``) or raises; with
     ``split`` given nothing between the call and the launches waits for the
-    device.
+    device, once :func:`check_split` has seen the pair.
     """
     _check(x, src, row_offsets, w)
     check_split("csr_segment_sum", split, row_offsets, src)

@@ -19,7 +19,14 @@ inputs and two more seeds, with every mask combination, the largest absolute
 differences were 7.2e-7 (forward), 6.7e-6 (dfeat), 1.2e-6 (del) and 5.5e-7
 (der). The gradients keep the wider bound because the softmax backward
 ``a * (da - sum a * da)`` cancels.
+
+K5, K6 and ``gat_attention`` also run with a row split handed in, built at 16
+edges a chunk so that the graph's hub rows are long rows of it: on the CPU the
+wrappers check the split against the offsets and then take the plain version,
+so the results are the same and a split of the other edge order raises.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +46,7 @@ from efficient_gnns_tpu.ops.pallas import (
     blocked_segment_sum_thin,
     tile_rows_thin,
 )
-from efficient_gnns_tpu_torch.graphs import build_graph
+from efficient_gnns_tpu_torch.graphs import build_graph, build_row_split
 from efficient_gnns_tpu_torch.ops import dispatch, edge_softmax, sddmm_add, spmm_heads
 from efficient_gnns_tpu_torch.ops.attention import gat_attention, sample_edge_masks
 from efficient_gnns_tpu_torch.ops.cuda import (
@@ -125,22 +132,40 @@ def _directions(jg, tg):
     ]
 
 
+def _with_splits(tg, threshold):
+    """``tg`` with both row splits built at ``threshold`` edges a chunk, or
+    without splits for None."""
+    if threshold is None:
+        return dataclasses.replace(tg, row_split=None, t_row_split=None)
+    return dataclasses.replace(
+        tg, row_split=build_row_split(tg.row_offsets, threshold),
+        t_row_split=build_row_split(tg.t_row_offsets, threshold))
+
+
+@pytest.mark.parametrize("split_at", [None, 16])
 @pytest.mark.parametrize("direction", [0, 1])
-def test_thin_segment_sum_and_max_match_pallas(rng, graphs, direction):
+def test_thin_segment_sum_and_max_match_pallas(rng, graphs, direction, split_at):
     jg, tg = graphs
     blk, _, _, ro, perm = _directions(jg, tg)[direction]
+    sg = _with_splits(tg, split_at)
+    split, other = [(sg.row_split, sg.t_row_split), (sg.t_row_split, sg.row_split)][direction]
     v_csr = rng.normal(size=(tg.num_edges_padded, H)).astype(np.float32)
     v_blk = _to_blocked(v_csr, blk)
     v = torch.from_numpy(v_csr[perm])
     want_sum = np.asarray(blocked_segment_sum_thin(v_blk, blk, N, interpret=True))
     want_max = np.asarray(blocked_segment_max_thin(v_blk, blk, N, interpret=True))
-    got_sum = csr_segment_sum_thin(v, ro).numpy()
-    got_max = csr_segment_max_thin(v, ro).numpy()
+    got_sum = csr_segment_sum_thin(v, ro, split).numpy()
+    got_max = csr_segment_max_thin(v, ro, split).numpy()
     np.testing.assert_allclose(got_sum, want_sum, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(got_max, want_max)
     deg = np.diff(ro.numpy())
     assert (deg == 0).any() and deg.max() >= 70
     assert (got_max[deg == 0] == F32_LOWEST).all() and (got_sum[deg == 0] == 0).all()
+    if split is not None:  # the hub row is a long row; the other order's split raises
+        assert split.num_long >= 1
+        for fn in (csr_segment_sum_thin, csr_segment_max_thin):
+            with pytest.raises(ValueError, match="row split was not built from"):
+                fn(v, ro, other)
 
 
 def test_tile_rows_thin_matches_pallas(rng, graphs):
@@ -223,10 +248,12 @@ def _attention_inputs(rng, tg, keep, attn):
     return feat, el, er, cot, keep_csr, attn_csr
 
 
+@pytest.mark.parametrize("split_at", [None, 16])
 @pytest.mark.parametrize("use_er", [True, False])
 @pytest.mark.parametrize("masks", ["none", "keep", "attn", "both"])
-def test_gat_attention_matches_jax(rng, graphs, use_er, masks):
+def test_gat_attention_matches_jax(rng, graphs, use_er, masks, split_at):
     jg, tg = graphs
+    tg = _with_splits(tg, split_at)
     blk = jg.blocking
     feat, el, er, cot, keep_csr, attn_csr = _attention_inputs(
         rng, tg, masks in ("keep", "both"), masks in ("attn", "both"))
@@ -264,6 +291,21 @@ def test_gat_attention_matches_unfused_composition(rng, graphs):
     want = spmm_heads(tg, f, a)
     got = gat_attention(tg, f, l, r, keep_mask=keep)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_gat_attention_refuses_swapped_splits(rng, graphs):
+    _, tg = graphs
+    sg = _with_splits(tg, 16)
+    swapped = dataclasses.replace(sg, row_split=sg.t_row_split, t_row_split=sg.row_split)
+    feat, el, er, _, _, _ = _attention_inputs(rng, tg, False, False)
+    f, l, r = (torch.from_numpy(a) for a in (feat, el, er))
+    with pytest.raises(ValueError, match="row split was not built from"):
+        gat_attention(swapped, f, l, r)
+    # the backward walks the transpose order with t_row_split
+    half = dataclasses.replace(sg, t_row_split=sg.row_split)
+    out = gat_attention(half, f.requires_grad_(), l, r)
+    with pytest.raises(ValueError, match="row split was not built from"):
+        out.sum().backward()
 
 
 def test_sample_edge_masks_rates():
@@ -334,7 +376,7 @@ def cuda_device():
 @pytest.mark.parametrize("heads,d", [(3, 250), (1, 40), (3, 5)])
 def test_attention_kernels_match_plain_on_card(rng, cuda_device, heads, d):
     # receiver 3 and sender 11 own 750 edges each: hub rows of both orders,
-    # which the row split cuts into chunks
+    # which the row split cuts into chunks for K2, K5 and K6
     s, r = _edges(rng, e=3000)
     g = build_graph(s, r, N, edge_pad_multiple=512).to(cuda_device)
     assert g.row_split.num_long >= 1 and g.t_row_split.num_long >= 1
@@ -353,10 +395,18 @@ def test_attention_kernels_match_plain_on_card(rng, cuda_device, heads, d):
         assert torch.equal(got, csr_segment_sum_heads(x, w, src, ro))
         torch.testing.assert_close(csr_sddmm_heads(gg, x, src, dst, ro, heads),
                                    csr_sddmm_heads_plain(gg, x, src, dst, ro, heads), **close)
-        torch.testing.assert_close(csr_segment_sum_thin(w, ro),
-                                   csr_segment_reduce_thin_plain(w, ro, "sum"), **close)
-        assert torch.equal(csr_segment_max_thin(w, ro),
-                           csr_segment_reduce_thin_plain(w, ro, "max"))
-        assert torch.equal(csr_tile_rows_thin(vals, dst, ro),
-                           csr_tile_rows_thin_plain(vals, dst, ro))
+        for fn, op in ((csr_segment_sum_thin, "sum"), (csr_segment_max_thin, "max")):
+            got = fn(w, ro, split)
+            want = csr_segment_reduce_thin_plain(w, ro, op)
+            if op == "sum":
+                torch.testing.assert_close(got, want, **close)
+            else:
+                assert torch.equal(got, want)
+            assert torch.equal(got, fn(w, ro, split)) and torch.equal(got, fn(w, ro))
+        want = csr_tile_rows_thin_plain(vals, dst, ro)
+        assert torch.equal(csr_tile_rows_thin(vals, dst, ro), want)
+        # dst as a view that is not 16-byte aligned, E_pad not a multiple of 4
+        shifted = torch.cat([dst[:1], dst])[1:-2]
+        assert shifted.data_ptr() % 16 and shifted.shape[0] % 4
+        assert torch.equal(csr_tile_rows_thin(vals, shifted, ro), want[:-2])
     torch.cuda.synchronize()

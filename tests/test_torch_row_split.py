@@ -1,16 +1,22 @@
-"""The port's row split (``graphs/row_split.py``): the chunk schedule that K1
-and K2 walk to cut power-law hub rows into independent units.
+"""The port's row split (``graphs/row_split.py``): the chunk schedule that K1,
+K2, K5 and K6 walk to cut power-law hub rows into independent units.
 
 On the CPU the kernels do not run, so these tests hold the *schedule*: it
 covers every real edge exactly once and no padding edge, its chunks never
 cross a row, its partial slots are in (row, chunk) order, and executing it in
-plain PyTorch (:func:`segment_sum_by_split`: chunk partials, then each long
+plain PyTorch (:func:`segment_reduce_by_split`: chunk partials, then each long
 row's partials summed in slot order) gives what ``csr_segment_sum_plain`` and
 ``csr_segment_sum_heads_plain`` give, on the graphs of
 ``tests/test_torch_spmm.py`` with a small chunk size forced through the
 build function's argument. Tolerance in float32: atol 1e-5 plus rtol 1e-5 of each
 output's sum of absolute terms, because the two sum a long row's edges in a
 different order (chunk by chunk against ``index_add_`` in edge order).
+
+The thin payloads of K5 and K6 (``[E_pad, H]``, H <= 8) go through the same
+schedule as a sum and as a max (:func:`segment_reduce_by_split`) and are held
+against ``csr_segment_reduce_thin_plain``: the max exactly, the sum to atol
+1e-6 plus rtol 1e-6 of each output's sum of absolute terms (a row of 643
+terms of order 1 summed in another order differs by a few 1e-6).
 """
 
 import dataclasses
@@ -25,14 +31,17 @@ from efficient_gnns_tpu_torch.graphs import (
     build_row_split,
     gcn_norm_weights,
     induced_subgraph,
-    segment_sum_by_split,
+    segment_reduce_by_split,
 )
 from efficient_gnns_tpu_torch.ops import spmm
 from efficient_gnns_tpu_torch.ops.cuda import (
     csr_segment_sum,
+    csr_segment_max_thin,
+    csr_segment_reduce_thin_plain,
     csr_segment_sum_heads,
     csr_segment_sum_heads_plain,
     csr_segment_sum_plain,
+    csr_segment_sum_thin,
 )
 from efficient_gnns_tpu_torch.ops.segment import gather
 
@@ -117,7 +126,7 @@ def test_executed_schedule_matches_k1_plain(rng, case, weights, threshold):
         msgs = gather(x, src[:g.n_edge])
         if w is not None:
             msgs = msgs * w[:g.n_edge, None]
-        got = segment_sum_by_split(msgs, ro, split)
+        got = segment_reduce_by_split(msgs, ro, split)
         want = csr_segment_sum_plain(x, src, ro, w)
         abs_sum = csr_segment_sum_plain(x.abs(), src, ro, None if w is None else w.abs())
         assert_sum_close(got.numpy(), want.numpy(), abs_sum.numpy())
@@ -134,10 +143,68 @@ def test_executed_schedule_matches_k2_plain(rng, case, heads, d):
     for src, ro in ((g.senders, g.row_offsets), (g.t_senders, g.t_row_offsets)):
         split = build_row_split(ro, 3)
         msgs = (gather(x, src[:e]).view(e, heads, d) * w[:e, :, None]).view(e, heads * d)
-        got = segment_sum_by_split(msgs, ro, split)
+        got = segment_reduce_by_split(msgs, ro, split)
         want = csr_segment_sum_heads_plain(x, w, src, ro)
         abs_sum = csr_segment_sum_heads_plain(x.abs(), w.abs(), src, ro)
         assert_sum_close(got.numpy(), want.numpy(), abs_sum.numpy())
+
+
+def _degree_lists(t):
+    """Rows at the edges of the split for chunk size ``t``."""
+    return {
+        "one_row": [5 * t + 3],
+        "edges_of_T": [0, t, 0, t + 1, 0, 0, 2 * t, 2 * t + 1, 0, 3, 0],
+        "last_row_long": [2, 0, 7, 3 * t + 5],
+    }
+
+
+def _assert_thin_matches_plain(v, ro, split, op):
+    got = segment_reduce_by_split(v, ro, split, op)
+    want = csr_segment_reduce_thin_plain(v, ro, op)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    if op == "max":  # exact, float32 lowest on empty rows
+        assert torch.equal(got, want)
+    else:
+        abs_sum = csr_segment_reduce_thin_plain(v.abs(), ro, "sum")
+        np.testing.assert_array_less((got - want).abs().numpy(),
+                                     1e-6 + 1e-6 * abs_sum.numpy())
+    deg = ro[1:] - ro[:-1]
+    empty = 0.0 if op == "sum" else torch.finfo(torch.float32).min
+    assert (got[deg == 0] == empty).all()
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("heads", [1, 3, 8])
+@pytest.mark.parametrize("threshold", [1, 3, 16, 128])
+@pytest.mark.parametrize("shape", ["one_row", "edges_of_T", "last_row_long"])
+def test_executed_thin_schedule_matches_plain_at_split_edges(rng, shape, threshold, heads, op):
+    deg = np.array(_degree_lists(threshold)[shape])
+    e, pad = int(deg.sum()), 13
+    ro = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32))
+    split = build_row_split(ro, threshold)
+    assert split.num_long == int((deg > threshold).sum()) >= 1
+    v = torch.from_numpy(rng.normal(size=(e + pad, heads)).astype(np.float32))
+    v[e:] = float("nan")  # padding edges are never read
+    _assert_thin_matches_plain(v, ro, split, op)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("threshold", [2, 32])
+@pytest.mark.parametrize("case", CASES)
+def test_executed_thin_schedule_matches_plain_on_graphs(rng, case, threshold, op):
+    g = _graph(rng, case)
+    v = torch.from_numpy(rng.normal(size=(g.num_edges_padded, 3)).astype(np.float32))
+    v[g.n_edge:] = float("nan")
+    for ro in (g.row_offsets, g.t_row_offsets):
+        _assert_thin_matches_plain(v, ro, build_row_split(ro, threshold), op)
+    if op == "max":  # a row whose every logit is masked keeps float32 lowest exactly
+        lowest = torch.finfo(torch.float32).min
+        masked = torch.full_like(v, lowest)
+        split = build_row_split(g.row_offsets, threshold)
+        out = segment_reduce_by_split(masked, g.row_offsets, split, "max")
+        assert (out == lowest).all()
+    with pytest.raises(ValueError, match="op must be"):
+        segment_reduce_by_split(v, g.row_offsets, build_row_split(g.row_offsets), "mean")
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -198,14 +265,43 @@ def test_wrappers_take_the_split_and_refuse_a_wrong_one(rng):
         build_row_split(g.row_offsets, 0)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def _call(kernel, x, w, ro, src, split):
+    if kernel == "K1":
+        return csr_segment_sum(x, src, ro, None, split)
+    if kernel == "K2":
+        return csr_segment_sum_heads(x, w, src, ro, split)
+    return (csr_segment_sum_thin if kernel == "K5" else csr_segment_max_thin)(w, ro, split)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K5", "K6"])
 def test_wrappers_refuse_a_split_of_another_graph(rng, kernel):
     g = _graph(rng, "high_degree")
     x = torch.randn(N, 16)
     w = torch.randn(g.num_edges_padded, 2)
     other = build_row_split(g.row_offsets[:-1])  # one row fewer
     with pytest.raises(ValueError, match="row split"):
-        if kernel == "K1":
-            csr_segment_sum(x, g.senders, g.row_offsets, None, other)
-        else:
-            csr_segment_sum_heads(x, w, g.senders, g.row_offsets, other)
+        _call(kernel, x, w, g.row_offsets, g.senders, other)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K5", "K6"])
+def test_wrappers_refuse_the_other_edge_orders_split(rng, kernel):
+    # both orders have the same rows and edges: only the schedule's content
+    # tells them apart (receiver 0 is a long row of the forward order alone)
+    g = _graph(rng, "high_degree")
+    x = torch.randn(N, 16)
+    w = torch.randn(g.num_edges_padded, 2)
+    assert g.row_split.num_long == 1 and g.t_row_split.num_long == 0
+    _call(kernel, x, w, g.row_offsets, g.senders, g.row_split)
+    _call(kernel, x, w, g.t_row_offsets, g.t_senders, g.t_row_split)
+    with pytest.raises(ValueError, match="row split was not built from"):
+        _call(kernel, x, w, g.t_row_offsets, g.t_senders, g.row_split)
+    with pytest.raises(ValueError, match="row split was not built from"):
+        _call(kernel, x, w, g.row_offsets, g.senders, g.t_row_split)
+    # a checked pair stays accepted, and an edit of the offsets in place is seen
+    _call(kernel, x, w, g.row_offsets, g.senders, g.row_split)
+    ro = g.row_offsets.clone()
+    split = build_row_split(ro)
+    _call(kernel, x, w, ro, g.senders, split)
+    ro[1:] = ro[-1]  # every edge moves to row 0
+    with pytest.raises(ValueError, match="row split was not built from"):
+        _call(kernel, x, w, ro, g.senders, split)
