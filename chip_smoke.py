@@ -11,10 +11,12 @@ it imports nothing of JAX. Phases, each of which must pass:
 3. K1 (``csr_segment_sum``) against its plain PyTorch version at the
    ogbn-arxiv shape the student gives it (169,343 nodes, the bidirected
    self-looped synthetic edge set, F = 256, 128 and 40, float32 and bfloat16,
-   the forward CSR and the transpose CSR of the backward), with its time,
-   the plain version's, one library call's (``torch.sparse`` CSR matmul,
-   timed only) and its bound; two launches must give the same bits, and a
-   call without the graph's row split the same as one with it;
+   the forward CSR and the transpose CSR of the backward) and at the two
+   shapes of the flagship teacher's hub attention (F = 768 and 128 in
+   bfloat16 with 0/1 edge-drop weights), with its time, the plain version's,
+   one library call's (``torch.sparse`` CSR matmul, timed only) and its
+   bound; two launches must give the same bits, and a call without the
+   graph's row split the same as one with it;
 4. small-input reference: the student trainer on the card against the same
    trainer on the CPU (which the tests hold against the JAX package), for
    the GCN in ``supervised``, the GCN in ``nce`` composed with logit KD and
@@ -27,38 +29,48 @@ it imports nothing of JAX. Phases, each of which must pass:
    versions at the teacher's arxiv shapes (H = 3 heads of D = 250 and the
    last layer's H = 1, D = 40; forward and transpose CSR), with their times,
    the plain versions', one library yardstick's each and their bounds; K2,
-   K5 and K6 are held to the same bits over two launches and without the
-   row split; K5-K7, a few microseconds each, are also timed with the host's
-   cost of a call hidden (``device alone``), beside an empty launch;
+   K4, K5 and K6 are held to the same bits over two launches and without the
+   row split (K4 also with chunks of 32 edges); K5-K7, a few microseconds
+   each, are also timed with the host's cost of a call hidden (``device
+   alone``), beside an empty launch;
 7. small-input reference: the teacher trainer on the card against the same
-   trainer on the CPU (dropouts 0, no label split);
+   trainer on the CPU (dropouts 0, no label split), with attn-dst on the
+   edge softmax and without it on the hub attention path; then
+   ``hub_gat_attention`` on the card against the CPU on a graph of over
+   200k edges with the hub partition, at the teacher's widths, with and without
+   edge-drop (the same keep set on both devices; float32 and the bfloat16
+   default hub messages);
 8. the teacher slice: ``efficient_gnns_tpu_torch.cli.gat_teacher`` trains
    the 3 x 3 x 250 GAT teacher at arxiv shape with the flags of
-   ``experiments/arxiv_hard.sh`` (attn-dst on) and dumps it, with the five
-   kernels' launch counters read around the run; then ``cli.arxiv`` trains
-   the GCN student from that dump in ``kd``, ``nce`` (MLP projection heads,
-   8192 sampled rows) and ``gcd`` (graph-conditioned heads) mode;
-9. a profile of one teacher epoch and of a chunk of GCN ``supervised``
-   student epochs at arxiv shape (``torch.profiler``): device busy and idle
-   share, the device time by kernel, the host calls that wait for the
-   device, the tables written to ``OUT_DIR``; and the steady epoch time of
-   both trainers without the profiler;
+   ``experiments/arxiv_hard.sh`` (``--no-attn-dst``: the hub attention path,
+   K1 alone) and dumps it, then the same teacher with attn-dst on (K2,
+   K4-K7), with every kernel's launch counter read around each run; then
+   ``cli.arxiv`` trains the GCN student from the flagship dump in ``kd``,
+   ``nce`` (MLP projection heads, 8192 sampled rows) and ``gcd``
+   (graph-conditioned heads) mode;
+9. a profile of one epoch of each teacher and of a chunk of GCN
+   ``supervised`` student epochs at arxiv shape (``torch.profiler``): device
+   busy and idle share, the device time by kernel, the host calls that wait
+   for the device, the tables written to ``OUT_DIR``; and the steady epoch
+   time of the three trainers without the profiler;
 10. K3 (``csr_sddmm``, the weight gradient of ``spmm`` with per-call
     weights) against its plain version at the arxiv shape, F = 256 and 40,
     float32 and bfloat16, with its time, the plain version's, one library
-    call's (``torch.sparse.sampled_addmm``, timed only) and its bound;
+    call's (``torch.sparse.sampled_addmm``, timed only) and its bound, held
+    to the same bits over two launches, without the split and with another;
 11. the runtime-weight path: ``sum(sin(spmm(graph, x, edge_weight=w)))``
     forward and backward on the card at arxiv shape, F = 256, with K1's and
     K3's launch counters read around it, ``dx`` and ``dw`` held against the
     same call on the CPU, and ``weight_grad=False`` (zero ``dw``, no K3);
-12. the row split's edges: K1, K2, K5 and K6 on small made-up graphs on the
-    card against their plain versions (one row holding every edge; rows of
+12. the row split's edges: K1-K6 on small made-up graphs on the card
+    against their plain versions (one row holding every edge; rows of
     exactly T, T + 1, 2T and 2T + 1 edges; empty rows before, between and
     after long rows; the last row long; F in {1, 33, 40, 250, 256}, float32
-    and bfloat16, weighted and unweighted for K1; (H, D) in {(1, 40),
-    (3, 250), (4, 33)} for K2; H in {1, 3, 8} for K5 and K6), each launched
-    twice for the same bits; K7 on the same graphs with an ``E_pad`` that is
-    no multiple of 4 and ``dst`` at an address that is not 16-byte aligned;
+    and bfloat16 for K1 (weighted and unweighted) and K3; (H, D) in {(1,
+    40), (3, 250), (4, 33)} for K2 and K4; H in {1, 3, 8} for K5 and K6),
+    each launched twice for the same bits; K7 on the same graphs with an
+    ``E_pad`` that is no multiple of 4 and ``dst`` at an address that is not
+    16-byte aligned;
 13. K1, K2 and K5 at other chunk sizes than the one the graph is built with
     (times only: what ``ROW_SPLIT_THRESHOLD`` was chosen from);
 14. K5 and K6 rebuilt with other lane-group widths and loads in flight
@@ -99,18 +111,26 @@ EPOCHS = 10
 # the forward and backward of each projection head's GCNConv.
 K1_PER_EPOCH = {("gcn", "supervised"): 6, ("gcn", "kd"): 6, ("gcn", "nce"): 6,
                 ("sage", "supervised"): 5, ("gcn", "gcd"): 10}
-# experiments/arxiv_hard.sh step 1 at arxiv shape, attn-dst on (the CLI default)
+# experiments/arxiv_hard.sh step 1 at arxiv shape: the flagship teacher
+# (--no-attn-dst, the hub attention path at this size), and beside it the
+# same teacher with attn-dst on (the edge-softmax path, K2 and K4-K7)
 HARD = ["--num-nodes", "169343", "--num-edges", "1166243", "--signal", "0.3",
         "--label-noise", "0.15"]
-TEACHER = HARD + ["--use-labels", "--n-label-iters", "1", "--use-norm",
-                  "--edge-drop", "0.3", "--input-drop", "0.25", "--n-runs", "1",
-                  "--seed", "0", "--save-pred", "--expt-name", "chip_smoke_teacher"]
+TEACHER_FLAGS = ["--use-labels", "--n-label-iters", "1", "--use-norm", "--edge-drop", "0.3",
+                 "--input-drop", "0.25", "--n-runs", "1", "--seed", "0"]
+TEACHER = HARD + TEACHER_FLAGS + ["--no-attn-dst", "--save-pred", "--expt-name",
+                                  "chip_smoke_teacher"]
+TEACHER_ATTN_DST = HARD + TEACHER_FLAGS + ["--expt-name", "chip_smoke_teacher_attn_dst"]
 TEACHER_EPOCHS = 3
-# kernel launches of one teacher epoch (3 layers, n_label_iters 1, attn-dst):
-# 12 layer forwards (2 train + 2 eval per layer) and 3 layer backwards;
-# forward: K2 1, K5 1, K6 1, K7 3 (er, max, 1/sum); backward: K2 1, K4 1,
-# K5 3 (softmax VJP, der, del), K7 1
-TEACHER_LAUNCHES = {"K2": 12 + 3, "K4": 3, "K5": 12 + 3 * 3, "K6": 12, "K7": 12 * 3 + 3}
+# kernel launches of one teacher epoch (3 layers, n_label_iters 1): 12 layer
+# forwards (2 train + 2 eval per layer) and 3 layer backwards.
+# --no-attn-dst on the hub path: one spmm a forward (K1), its transpose a
+# backward (K1), nothing else.
+TEACHER_LAUNCHES = {"K1": 12 + 3, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+# attn-dst: forward K2 1, K5 1, K6 1, K7 3 (er, max, 1/sum); backward K2 1,
+# K4 1, K5 3 (softmax VJP, der, del), K7 1
+TEACHER_ATTN_DST_LAUNCHES = {"K1": 0, "K2": 12 + 3, "K3": 0, "K4": 3, "K5": 12 + 3 * 3,
+                             "K6": 12, "K7": 12 * 3 + 3}
 HEADS = ((3, 250), (1, 40))  # the teacher's hidden layers and its last layer
 DEVICE = "cuda"
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -225,66 +245,75 @@ def phase_k1(graph):
           f"mean={e / n:.1f} (drawn by numpy {numpy.__version__})", flush=True)
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     records, failures = [], []
-    for f in (256, 128, 40):  # hidden, input features (SAGE's first mean), classes
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(n, f, generator=gen, device=DEVICE).to(dtype)
-            for direction, src, ro, w, sp in (
-                ("fwd", g.senders, g.row_offsets, g.edge_weight, g.row_split),
-                ("bwd", g.t_senders, g.t_row_offsets, g.t_edge_weight, g.t_row_split),
-            ):
-                got = csr_segment_sum(x, src, ro, w, sp)
-                want = csr_segment_sum_plain(x, src, ro, w)
-                abs_sum = csr_segment_sum_plain(x.abs(), src, ro, w.abs())
-                torch.cuda.synchronize()
-                diff = (got - want).abs()
-                err = float(diff.max())
-                ok = bool((diff <= TOL + TOL * abs_sum).all()) and got.shape == (n, f)
-                same_bits = torch.equal(got, csr_segment_sum(x, src, ro, w, sp))
-                no_split = torch.equal(got, csr_segment_sum(x, src, ro, w))
-                ms = _time_ms(lambda: csr_segment_sum(x, src, ro, w, sp), 20)
-                plain_ms = _time_ms(lambda: csr_segment_sum_plain(x, src, ro, w), 5)
-                library_ms = None
-                try:  # the yardstick: one cuSPARSE call through torch.sparse
-                    a = torch.sparse_csr_tensor(ro, src[:e], w[:e].to(dtype), (n, n))
-                    library_ms = _time_ms(lambda: a @ x, 20)
-                except (RuntimeError, NotImplementedError) as exc:
-                    print(f"  library call unavailable for {dtype}: {exc}")
-                item = x.element_size()
-                unique_bytes = n * f * item + n * f * 4 + e * 8 + (n + 1) * 4
-                gathered_bytes = e * f * item + n * f * 4 + e * 8 + (n + 1) * 4
-                flops = 2 * e * f
-                t_bytes = unique_bytes / HBM_BYTES_PER_S * 1e3
-                t_ops = flops / FP32_FLOP_PER_S * 1e3
-                gathered_ms = gathered_bytes / HBM_BYTES_PER_S * 1e3
-                name = f"K1 csr_segment_sum {direction} F={f} {str(dtype)[6:]}"
-                records.append({
-                    "name": name,
-                    "route": "cuda",
-                    "source": "efficient_gnns_tpu_torch/ops/cuda/csrc/segment_sum.cu",
-                    "replaces": "efficient_gnns_tpu/ops/pallas/segment_matmul.py:162",
-                    "launches": None,
-                    "max_abs_err": err,
-                    "ms": ms,
-                    "plain_ms": plain_ms,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": library_ms,
-                    # the input features carry no gradient: no backward at F=128
-                    "on_main_path": dtype == torch.float32
-                    and not (f == 128 and direction == "bwd"),
-                    "shape": {"N": n, "E": e, "F": f},
-                    "redesigned": "row split",
-                })
-                print(f"  {name}: max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'} "
-                      f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms} "
-                      f"bound_ms={records[-1]['bound_ms']:.4f} "
-                      f"gathered_bound_ms={gathered_ms:.4f} "
-                      f"two launches {'equal' if same_bits else 'DIFFER'} "
-                      f"without split {'equal' if no_split else 'DIFFERS'}", flush=True)
-                if not ok:
-                    failures.append(name)
-                if not (same_bits and no_split):
-                    failures.append(f"{name}: not the same bits twice or without the split")
+    # the hub teacher's spmm: y = [z * x | z] in bfloat16, 768 wide at the
+    # hidden layers and 128 at the last, 0/1 edge-drop weights (keep 0.7)
+    keep = ((torch.rand(g.num_edges_padded, generator=gen, device=DEVICE) < 0.7)
+            & g.edge_mask).float()
+    keep_t = keep[g.csc_perm.long()].contiguous()
+    f32, bf16 = torch.float32, torch.bfloat16
+    for f, dtype, hub in ((256, f32, False), (256, bf16, False), (128, f32, False),
+                          (128, bf16, False), (40, f32, False), (40, bf16, False),
+                          (768, bf16, True), (128, bf16, True)):
+        x = torch.randn(n, f, generator=gen, device=DEVICE).to(dtype)
+        for direction, src, ro, w, sp in (
+            ("fwd", g.senders, g.row_offsets, keep if hub else g.edge_weight, g.row_split),
+            ("bwd", g.t_senders, g.t_row_offsets, keep_t if hub else g.t_edge_weight,
+             g.t_row_split),
+        ):
+            got = csr_segment_sum(x, src, ro, w, sp)
+            want = csr_segment_sum_plain(x, src, ro, w)
+            abs_sum = csr_segment_sum_plain(x.abs(), src, ro, w.abs())
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            err = float(diff.max())
+            ok = bool((diff <= TOL + TOL * abs_sum).all()) and got.shape == (n, f)
+            same_bits = torch.equal(got, csr_segment_sum(x, src, ro, w, sp))
+            no_split = torch.equal(got, csr_segment_sum(x, src, ro, w))
+            ms = _time_ms(lambda: csr_segment_sum(x, src, ro, w, sp), 20)
+            plain_ms = _time_ms(lambda: csr_segment_sum_plain(x, src, ro, w), 5)
+            library_ms = None
+            try:  # the yardstick: one cuSPARSE call through torch.sparse
+                a = torch.sparse_csr_tensor(ro, src[:e], w[:e].to(dtype), (n, n))
+                library_ms = _time_ms(lambda: a @ x, 20)
+            except (RuntimeError, NotImplementedError) as exc:
+                print(f"  library call unavailable for {dtype}: {exc}")
+            item = x.element_size()
+            unique_bytes = n * f * item + n * f * 4 + e * 8 + (n + 1) * 4
+            gathered_bytes = e * f * item + n * f * 4 + e * 8 + (n + 1) * 4
+            flops = 2 * e * f
+            t_bytes = unique_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / FP32_FLOP_PER_S * 1e3
+            gathered_ms = gathered_bytes / HBM_BYTES_PER_S * 1e3
+            name = (f"K1 csr_segment_sum {direction} F={f} {str(dtype)[6:]}"
+                    + (" hub" if hub else ""))
+            records.append({
+                "name": name,
+                "route": "cuda",
+                "source": "efficient_gnns_tpu_torch/ops/cuda/csrc/segment_sum.cu",
+                "replaces": "efficient_gnns_tpu/ops/pallas/segment_matmul.py:162",
+                "launches": None,
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms,
+                # the input features carry no gradient: no backward at F=128
+                "on_main_path": hub or (dtype == torch.float32
+                                        and not (f == 128 and direction == "bwd")),
+                "shape": {"N": n, "E": e, "F": f},
+                "redesigned": "row split",
+            })
+            print(f"  {name}: max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'} "
+                  f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms} "
+                  f"bound_ms={records[-1]['bound_ms']:.4f} "
+                  f"gathered_bound_ms={gathered_ms:.4f} "
+                  f"two launches {'equal' if same_bits else 'DIFFER'} "
+                  f"without split {'equal' if no_split else 'DIFFERS'}", flush=True)
+            if not ok:
+                failures.append(name)
+            if not (same_bits and no_split):
+                failures.append(f"{name}: not the same bits twice or without the split")
     # padding edges lie past row_offsets[N]: poisoned, they must change nothing
     x = torch.randn(n, 40, generator=gen, device=DEVICE)
     poisoned = g.senders.clone()
@@ -399,6 +428,7 @@ def phase_attention_kernels(graph):
     """K2, K4-K7 against their plain versions at the teacher's shapes."""
     import torch
 
+    from efficient_gnns_tpu_torch.graphs import build_row_split
     from efficient_gnns_tpu_torch.ops import cuda as K
 
     g = graph.to(DEVICE)
@@ -465,10 +495,22 @@ def phase_attention_kernels(graph):
             records[-1]["redesigned"] = "row split"
             del got, want, scale, diff
             # K4: per-edge head dots; tolerance on each dot's sum of |terms|
-            got = K.csr_sddmm_heads(gg, x, src, dst, ro, h)
-            want = K.csr_sddmm_heads_plain(gg, x, src, dst, ro, h)
-            scale = K.csr_sddmm_heads_plain(gg.abs(), x.abs(), src, dst, ro, h)
+            got = K.csr_sddmm_heads(gg, x, src, ro, h, sp)
+            want = K.csr_sddmm_heads_plain(gg, x, src, ro, h)
+            scale = K.csr_sddmm_heads_plain(gg.abs(), x.abs(), src, ro, h)
             diff = (got - want).abs()
+            # each dot has one owner and one order: the same bits twice, without
+            # the split and with chunks of 32 edges
+            same_bits = torch.equal(got, K.csr_sddmm_heads(gg, x, src, ro, h, sp))
+            no_split = torch.equal(got, K.csr_sddmm_heads(gg, x, src, ro, h))
+            other = torch.equal(got, K.csr_sddmm_heads(gg, x, src, ro, h,
+                                                       build_row_split(ro, 32).to(DEVICE)))
+            print(f"  K4 {tag}: two launches {'equal' if same_bits else 'DIFFER'}, "
+                  f"without split {'equal' if no_split else 'DIFFERS'}, "
+                  f"chunks of 32 {'equal' if other else 'DIFFER'}", flush=True)
+            if not (same_bits and no_split and other):
+                failures.append(f"K4 {tag}: not the same bits twice, without the split "
+                                "or with another")
             pattern = torch.sparse_csr_tensor(ro, src[:e], torch.zeros(e, device=DEVICE),
                                               (n, n))
             gs = [gg.view(n, h, d)[:, j].contiguous() for j in range(h)]
@@ -479,9 +521,10 @@ def phase_attention_kernels(graph):
             record("K4", f"csr_sddmm_heads {tag}", "segment_heads.cu",
                    "segment_matmul.py:250", float(diff.max()),
                    bool((diff <= TOL + TOL * scale).all()),
-                   lambda: K.csr_sddmm_heads(gg, x, src, dst, ro, h),
-                   lambda: K.csr_sddmm_heads_plain(gg, x, src, dst, ro, h), lib,
-                   2 * n * hd * 4 + 2 * e * 4 + e_pad * h * 4 + 4, 2 * e * hd, shape)
+                   lambda: K.csr_sddmm_heads(gg, x, src, ro, h, sp),
+                   lambda: K.csr_sddmm_heads_plain(gg, x, src, ro, h), lib,
+                   2 * n * hd * 4 + e * 4 + (n + 1) * 4 + e_pad * h * 4, 2 * e * hd, shape)
+            records[-1]["redesigned"] = "row walk, g once per row"
             del got, want, scale, diff, pattern, mats
             # K5 / K6: thin segment sum and max; K7: rows back to the edges
             offsets = ro.long()
@@ -555,8 +598,8 @@ def phase_attention_kernels(graph):
         "K2": torch.equal(
             K.csr_segment_sum_heads(x, nan_w, src, g.row_offsets, g.row_split),
             K.csr_segment_sum_heads(x, w, g.senders, g.row_offsets, g.row_split)),
-        "K4": torch.equal(K.csr_sddmm_heads(x, x, src, dst, g.row_offsets, h),
-                          K.csr_sddmm_heads(x, x, g.senders, g.receivers, g.row_offsets, h)),
+        "K4": torch.equal(K.csr_sddmm_heads(x, x, src, g.row_offsets, h, g.row_split),
+                          K.csr_sddmm_heads(x, x, g.senders, g.row_offsets, h, g.row_split)),
         "K5": torch.equal(K.csr_segment_sum_thin(nan_w, g.row_offsets, g.row_split),
                           K.csr_segment_sum_thin(w, g.row_offsets, g.row_split)),
         "K6": torch.equal(K.csr_segment_max_thin(nan_w, g.row_offsets, g.row_split),
@@ -568,8 +611,6 @@ def phase_attention_kernels(graph):
     # a split of other offsets with the same rows and edges (the degrees in
     # reverse order; this graph is symmetric, so its transpose order will not
     # do): only its content tells, and the wrapper must refuse it
-    from efficient_gnns_tpu_torch.graphs import build_row_split
-
     reverse = torch.zeros_like(g.row_offsets)
     reverse[1:] = torch.cumsum((g.row_offsets[1:] - g.row_offsets[:-1]).flip(0), 0)
     try:
@@ -586,25 +627,32 @@ def phase_k3(graph):
     ``spmm`` backward (the cotangent's rows by receiver, x's by sender)."""
     import torch
 
+    from efficient_gnns_tpu_torch.graphs import build_row_split
     from efficient_gnns_tpu_torch.ops.cuda import csr_sddmm, csr_sddmm_plain
 
     g = graph.to(DEVICE)
     n, e, e_pad = g.num_nodes, g.n_edge, g.num_edges_padded
-    args = (g.senders, g.receivers, g.row_offsets)
+    args = (g.senders, g.row_offsets)
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     records, failures = [], []
+    other_split = build_row_split(g.row_offsets, 32).to(DEVICE)
     for f in (256, 40):
         for dtype in (torch.float32, torch.bfloat16):
             cot = torch.randn(n, f, generator=gen, device=DEVICE).to(dtype)
             x = torch.randn(n, f, generator=gen, device=DEVICE).to(dtype)
-            got = csr_sddmm(cot, x, *args)
+            got = csr_sddmm(cot, x, *args, g.row_split)
             want = csr_sddmm_plain(cot, x, *args)
             # tolerance on each dot's sum of |terms| (summation order)
             scale = csr_sddmm_plain(cot.abs(), x.abs(), *args)
             torch.cuda.synchronize()
             diff = (got - want).abs()
             ok = bool((diff <= TOL + TOL * scale).all()) and got.shape == (e_pad,)
-            ms = _time_ms(lambda: csr_sddmm(cot, x, *args))
+            # one owner and one order per dot: the same bits twice, without the
+            # split and with chunks of 32 edges
+            same_bits = (torch.equal(got, csr_sddmm(cot, x, *args, g.row_split))
+                         and torch.equal(got, csr_sddmm(cot, x, *args))
+                         and torch.equal(got, csr_sddmm(cot, x, *args, other_split)))
+            ms = _time_ms(lambda: csr_sddmm(cot, x, *args, g.row_split))
             plain_ms = _time_ms(lambda: csr_sddmm_plain(cot, x, *args))
             xt = x.t().contiguous()
             library_ms = None
@@ -620,8 +668,9 @@ def phase_k3(graph):
                     lambda: torch.sparse.sampled_addmm(pattern, cot, xt, beta=0.0))
             item = x.element_size()
             bound_ms, bound_by = _bound(
-                2 * n * f * item + 2 * e * 4 + e_pad * 4 + 4, 2 * e * f)
-            gathered_ms = (2 * e * f * item + 2 * e * 4 + e_pad * 4) / HBM_BYTES_PER_S * 1e3
+                2 * n * f * item + e * 4 + (n + 1) * 4 + e_pad * 4, 2 * e * f)
+            gathered_ms = (n * f * item + e * f * item + e * 4 + (n + 1) * 4
+                           + e_pad * 4) / HBM_BYTES_PER_S * 1e3
             name = f"K3 csr_sddmm F={f} {str(dtype)[6:]}"
             records.append({
                 "name": name, "route": "cuda",
@@ -632,21 +681,25 @@ def phase_k3(graph):
                 "library_ms": library_ms,
                 "on_main_path": dtype == torch.float32 and f == 256,
                 "shape": {"N": n, "E": e, "F": f},
+                "redesigned": "row walk, g once per row",
             })
             print(f"  {name}: max_abs_err={records[-1]['max_abs_err']:.3e} "
                   f"{'ok' if ok else 'MISMATCH'} ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={library_ms} bound_ms={bound_ms:.4f} ({bound_by}) "
-                  f"gathered_bound_ms={gathered_ms:.4f}", flush=True)
+                  f"gathered_bound_ms={gathered_ms:.4f} two launches, without split and "
+                  f"with chunks of 32 {'equal' if same_bits else 'DIFFER'}", flush=True)
             if not ok:
                 failures.append(name)
+            if not same_bits:
+                failures.append(f"{name}: not the same bits twice, without the split "
+                                "or with another")
             del got, want, scale, diff
     # padding edges lie past row_offsets[N]: poisoned, they must change nothing
     cot = torch.randn(n, 40, generator=gen, device=DEVICE)
-    src, dst = g.senders.clone(), g.receivers.clone()
+    src = g.senders.clone()
     src[e:] = 2**31 - 1
-    dst[e:] = 2**31 - 1
-    got = csr_sddmm(cot, cot, src, dst, g.row_offsets)
-    if not torch.equal(got, csr_sddmm(cot, cot, *args)) or bool(got[e:].any()):
+    got = csr_sddmm(cot, cot, src, g.row_offsets, g.row_split)
+    if not torch.equal(got, csr_sddmm(cot, cot, *args, g.row_split)) or bool(got[e:].any()):
         failures.append("K3 read a padding edge")
     torch.cuda.synchronize()
     return records, failures
@@ -703,7 +756,7 @@ def phase_runtime_spmm(graph):
     out_scale = csr_segment_sum_plain(xd.abs(), g.senders, g.row_offsets, wd.abs())
     dx_scale = csr_segment_sum_plain(cot.abs(), g.t_senders, g.t_row_offsets,
                                      wd[g.csc_perm.long()].abs())
-    dw_scale = csr_sddmm_plain(cot.abs(), xd.abs(), g.senders, g.receivers, g.row_offsets)
+    dw_scale = csr_sddmm_plain(cot.abs(), xd.abs(), g.senders, g.row_offsets)
     errs = {}
     for name, got, want, scale in (("out", out, ref_out, out_scale),
                                    ("dx", dx, ref_dx, dx_scale),
@@ -721,10 +774,10 @@ def phase_runtime_spmm(graph):
 
 
 def phase_split_edges():
-    """K1, K2, K5 and K6 at the edges of the row split, on small made-up
-    graphs on the card: each case against the plain version (``TOL + TOL *
-    sum|terms|``; the max exactly) and launched twice for the same bits.
-    Padding edges carry an out-of-range sender and a NaN weight or value. K7
+    """K1-K6 at the edges of the row split, on small made-up graphs on the
+    card: each case against the plain version (``TOL + TOL * sum|terms|``;
+    the max exactly) and launched twice for the same bits. Padding edges
+    carry an out-of-range sender and a NaN weight or value. K7
     on the same graphs, exactly, with an out-of-range ``dst`` on the padding,
     an ``E_pad`` that is no multiple of 4, and ``dst``
     as a view that is not 16-byte aligned. Returns the failures."""
@@ -778,6 +831,11 @@ def phase_split_edges():
                          K.csr_segment_sum_plain(x, src, ro, wt),
                          K.csr_segment_sum_plain(x.abs(), src, ro,
                                                  None if wt is None else wt.abs()))
+                # K3: g has one row per CSR row, x one per sender
+                g = torch.randn(len(degrees), f, generator=gen, device=DEVICE).to(dtype)
+                hold(f"K3 {case} F={f} {str(dtype)[6:]}", K.csr_sddmm(g, x, src, ro, split),
+                     K.csr_sddmm(g, x, src, ro, split), K.csr_sddmm_plain(g, x, src, ro),
+                     K.csr_sddmm_plain(g.abs(), x.abs(), src, ro))
         for h, d in ((1, 40), (3, 250), (4, 33)):
             x = torch.randn(n_src, h * d, generator=gen, device=DEVICE)
             w = torch.randn(e + pad, h, generator=gen, device=DEVICE)
@@ -787,6 +845,11 @@ def phase_split_edges():
                  K.csr_segment_sum_heads(x, w, src, ro, split),
                  K.csr_segment_sum_heads_plain(x, w, src, ro),
                  K.csr_segment_sum_heads_plain(x.abs(), w.abs(), src, ro))
+            g = torch.randn(len(degrees), h * d, generator=gen, device=DEVICE)
+            hold(f"K4 {case} H={h} D={d}", K.csr_sddmm_heads(g, x, src, ro, h, split),
+                 K.csr_sddmm_heads(g, x, src, ro, h, split),
+                 K.csr_sddmm_heads_plain(g, x, src, ro, h),
+                 K.csr_sddmm_heads_plain(g.abs(), x.abs(), src, ro, h))
         pad7 = pad + ((e + pad) % 4 == 0)  # K7: E_pad no multiple of 4
         dst = torch.full((e + pad7 + 1,), 2**31 - 1, dtype=torch.int32, device=DEVICE)
         dst[1:e + 1] = csr_row_ids(ro, e)
@@ -894,85 +957,218 @@ def phase_thin_group_sweep(graph):
     return failures
 
 
-def _teacher_config(**kw):
+def _teacher_config(no_attn_dst, **kw):
     from efficient_gnns_tpu_torch.train import TeacherConfig
 
-    return TeacherConfig(no_attn_dst=False, **kw)
+    return TeacherConfig(no_attn_dst=no_attn_dst, **kw)
 
 
 def phase_teacher_reference():
     """The teacher trainer on the card against the CPU trainer, same start,
-    every dropout 0 and no label split (mask_rate 0)."""
+    every dropout 0 and no label split (mask_rate 0): with attn-dst on a
+    graph without hubs (the edge softmax), and without attn-dst on a graph
+    with 64 hubs (the hub attention path, float32 hub messages)."""
     import numpy as np
+    import torch
 
     from efficient_gnns_tpu_torch.data import synthetic_node_dataset
+    from efficient_gnns_tpu_torch.ops import dispatch
+    from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum, csr_segment_sum_heads
     from efficient_gnns_tpu_torch.train import GATTeacherTrainer
 
-    ds = synthetic_node_dataset(num_nodes=3000, num_edges=15000, seed=5, gcn_norm=False)
-    cfg = _teacher_config(n_hidden=32, dropout=0.0, input_drop=0.0, edge_drop=0.0,
-                          mask_rate=0.0, lr=0.01)
-    hist = {}
-    for device in ("cpu", DEVICE):
-        trainer = GATTeacherTrainer(cfg, ds.graph, ds.x, ds.y, ds.split_idx,
-                                    ds.num_classes, device=device)
-        hist[device] = trainer.run_epochs(1, 3)[1]
-    losses = [0, 5, 6, 7]
-    got, want = hist[DEVICE][:, losses], hist["cpu"][:, losses]
-    print(f"teacher reference: cuda vs cpu trainer, 3 epochs, losses {got[:, 0].tolist()} "
-          f"max_abs_err={float(np.abs(got - want).max()):.3e}", flush=True)
-    return bool(np.isfinite(got).all() and np.allclose(got, want, rtol=1e-4, atol=1e-6))
+    ok = True
+    for tag, no_attn_dst, hub_dense in (("attn-dst", False, 0), ("hub", True, 64)):
+        ds = synthetic_node_dataset(num_nodes=3000, num_edges=15000, seed=5, gcn_norm=False,
+                                    hub_dense=hub_dense)
+        cfg = _teacher_config(no_attn_dst, n_hidden=32, dropout=0.0, input_drop=0.0,
+                              edge_drop=0.0, mask_rate=0.0, lr=0.01)
+        hist = {}
+        dispatch.set_hub_message_dtype(torch.float32)
+        try:
+            for device in ("cpu", DEVICE):
+                csr_segment_sum.launches = csr_segment_sum_heads.launches = 0
+                trainer = GATTeacherTrainer(cfg, ds.graph, ds.x, ds.y, ds.split_idx,
+                                            ds.num_classes, device=device)
+                hist[device] = trainer.run_epochs(1, 3)[1]
+        finally:
+            dispatch.set_hub_message_dtype(torch.bfloat16)
+        # the hub path runs K1 and never K2; the edge softmax the other way round
+        path_ok = ((csr_segment_sum.launches > 0) == no_attn_dst
+                   and (csr_segment_sum_heads.launches > 0) != no_attn_dst)
+        losses = [0, 5, 6, 7]
+        got, want = hist[DEVICE][:, losses], hist["cpu"][:, losses]
+        print(f"teacher reference {tag}: cuda vs cpu trainer, 3 epochs, losses "
+              f"{got[:, 0].tolist()} max_abs_err={float(np.abs(got - want).max()):.3e} "
+              f"K1 launches {csr_segment_sum.launches} K2 {csr_segment_sum_heads.launches}",
+              flush=True)
+        ok = ok and path_ok and bool(np.isfinite(got).all()
+                                     and np.allclose(got, want, rtol=1e-4, atol=1e-6))
+    return ok
 
 
-def phase_teacher_slice():
-    """The teacher CLI at arxiv shape (counts of K2, K4-K7 read around it),
-    then the student from its dump in ``kd``, ``nce`` and ``gcd`` mode (K1
-    counted). Returns (launches by kernel, failures)."""
+def _hub_scales(feat, el, mags, negative_slope=0.2):
+    """Each entry's sum of |terms| for ``hub_gat_attention``'s out, dfeat and
+    del, from ``mags``: the CPU path's out, dfeat and del run on |feat| and
+    |cot| with the same ``el``. Then out and dfeat are such sums already
+    (the softmax weights are positive); del = L * z * (sum_c x_c * gy_c +
+    gy_den) with L the leaky_relu slope, and on the |.| inputs its first part
+    P = L * sum_c |x_c| * dfeat_c is >= 0 and the rest del - P (the
+    denominator's cotangent) <= 0, so |P| + |del - P| is del's."""
+    import torch
+
+    out_abs, dfeat_abs, del_abs = mags
+    slope = torch.where(el > 0, 1.0, negative_slope)
+    p = slope * (feat.abs() * dfeat_abs).sum(-1)
+    return [out_abs, dfeat_abs, p.abs() + (del_abs - p).abs()]
+
+
+def phase_hub_attention():
+    """``hub_gat_attention`` on the card against the CPU on a graph of 20,000
+    nodes whose edges (over 200k) switch the hub partition on
+    (``hub_dense="auto"``: 512 hubs), at the teacher's widths (H = 3, D = 250; H = 1, D = 40), with
+    edge-drop 0.3 from a seed near 2**32 and without: the same keep set on
+    both devices; values and gradients in float32 hub messages entry by
+    entry within 1e-6 + 1e-4 of the entry's sum of |terms| (``_hub_scales``:
+    the orders of the sums differ, and a hub sender's gradient sums the
+    cotangents of thousands of receivers with cancellation, so an entry's own
+    size is no scale); and the card's bfloat16 default within 1e-2 of
+    max|out| of the float32 CPU result. K1 twice (forward, transpose
+    backward), nothing else. Returns the failures."""
+    import torch
+
+    from efficient_gnns_tpu_torch.data import synthetic_node_dataset
+    from efficient_gnns_tpu_torch.ops import cuda as K
+    from efficient_gnns_tpu_torch.ops import dispatch
+    from efficient_gnns_tpu_torch.ops import hub_attention as hub
+
+    graph = synthetic_node_dataset(num_nodes=20000, num_edges=120000, seed=7,
+                                   gcn_norm=False).graph
+    if not hub.supports_hub_attention(graph):
+        return ["hub attention: the graph has no hub partition"]
+    print(f"hub attention graph: N={graph.num_nodes} E={graph.n_edge} hubs "
+          f"{graph.hub.hub_src.shape[0]}: {graph.hub.src_eids.shape[0]} sender-hub edges, "
+          f"{graph.hub.dst_eids.shape[0]} receiver-hub edges", flush=True)
+    failures = []
+    gen = torch.Generator().manual_seed(8)
+    n, seed = graph.num_nodes, 2**32 - 9
+    keep = {dev: hub.hub_keep_weights(graph.to(dev), torch.tensor(seed, device=dev), 0.7)
+            for dev in ("cpu", DEVICE)}
+    if not torch.equal(keep["cpu"], keep[DEVICE].cpu()):
+        failures.append("hub attention: the keep set differs between the devices")
+    counters = {k: getattr(K, name) for k, name in (
+        ("K1", "csr_segment_sum"), ("K2", "csr_segment_sum_heads"), ("K3", "csr_sddmm"),
+        ("K4", "csr_sddmm_heads"), ("K5", "csr_segment_sum_thin"),
+        ("K6", "csr_segment_max_thin"), ("K7", "csr_tile_rows_thin"))}
+    for h, d in HEADS:
+        feat = torch.randn(n, h, d, generator=gen)
+        el = torch.randn(n, h, generator=gen) * 2
+        cot = torch.randn(n, h, d, generator=gen)
+        for drop in (None, seed):
+            def run(dev, dtype, feat=feat, cot=cot):
+                dispatch.set_hub_message_dtype(dtype)
+                try:
+                    f = feat.to(dev, copy=True).requires_grad_()
+                    e = el.to(dev, copy=True).requires_grad_()
+                    out = hub.hub_gat_attention(
+                        graph.to(dev), f, e, edge_drop=0.3,
+                        drop_seed=None if drop is None else torch.tensor(drop, device=dev))
+                    (out * cot.to(dev)).sum().backward()
+                finally:
+                    dispatch.set_hub_message_dtype(torch.bfloat16)
+                return [t.detach().cpu() for t in (out, f.grad, e.grad)]
+
+            want = run("cpu", torch.float32)
+            scales = _hub_scales(feat, el, run("cpu", torch.float32, feat.abs(), cot.abs()))
+            for c in counters.values():
+                c.launches = 0
+            got = run(DEVICE, torch.float32)
+            launches = {k: c.launches for k, c in counters.items()}
+            bf16 = run(DEVICE, torch.bfloat16)
+            errs = [(a - b).abs() for a, b in zip(got, want)]
+            # entries that no kept edge reaches have scale 0 and error 0
+            ratios = [float((err / scale.clamp_min(1e-30)).max())
+                      for err, scale in zip(errs, scales)]
+            bf16_err = float((bf16[0] - want[0]).abs().max())
+            tag = f"H={h} D={d} {'edge-drop 0.3' if drop else 'no drop'}"
+            print(f"hub attention {tag}: card vs cpu out / dfeat / del max_abs_err "
+                  + " / ".join(f"{float(err.max()):.3e}" for err in errs)
+                  + ", max err / sum|terms| "
+                  + " / ".join(f"{r:.3e}" for r in ratios)
+                  + f", bfloat16 messages out {bf16_err:.3e} (max|out| "
+                  f"{float(want[0].abs().max()):.3f}), launches {launches}", flush=True)
+            if launches != {"K1": 2, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}:
+                failures.append(f"hub attention {tag}: launches {launches}")
+            for name, err, scale in zip(("out", "dfeat", "del"), errs, scales):
+                if not bool((err <= 1e-6 + 1e-4 * scale).all()):
+                    failures.append(f"hub attention {tag}: {name} disagrees with the CPU")
+            if not (bf16_err <= 1e-2 * float(want[0].abs().max())
+                    and all(bool(torch.isfinite(t).all()) for t in bf16)):
+                failures.append(f"hub attention {tag}: bfloat16 messages too far")
+    torch.cuda.synchronize()
+    return failures
+
+
+def _teacher_run(argv, expected):
+    """One run of the teacher CLI at arxiv shape with every kernel's counter
+    read around it; returns (launches by kernel, failures)."""
     import math
 
-    import numpy as np
-
     from efficient_gnns_tpu_torch.cli import gat_teacher
-    from efficient_gnns_tpu_torch.distill import load_teacher_dump
     from efficient_gnns_tpu_torch.ops import cuda as K
 
-    counters = {"K1": K.csr_segment_sum, "K2": K.csr_segment_sum_heads,
+    counters = {"K1": K.csr_segment_sum, "K2": K.csr_segment_sum_heads, "K3": K.csr_sddmm,
                 "K4": K.csr_sddmm_heads, "K5": K.csr_segment_sum_thin,
                 "K6": K.csr_segment_max_thin, "K7": K.csr_tile_rows_thin}
-    failures = []
     for c in counters.values():
         c.launches = 0
-    summary = gat_teacher.main(TEACHER + [
+    summary = gat_teacher.main(argv + [
         "--n-epochs", str(TEACHER_EPOCHS), "--epoch-chunk", str(TEACHER_EPOCHS),
         "--log-every", "1", "--out-dir", OUT_DIR, "--device", DEVICE])
     launches = {k: c.launches for k, c in counters.items()}
     run = summary["runs"][0]
-    print(f"teacher slice: launches {launches} (expected per epoch {TEACHER_LAUNCHES}) "
+    tag = "no-attn-dst (hub)" if "--no-attn-dst" in argv else "attn-dst"
+    print(f"teacher slice {tag}: launches {launches} (expected per epoch {expected}) "
           f"mean epoch (train step + eval) {run['seconds'] / TEACHER_EPOCHS * 1e3:.1f} ms "
           f"losses {run['losses']}", flush=True)
-    for k, per_epoch in TEACHER_LAUNCHES.items():
-        if launches[k] != per_epoch * TEACHER_EPOCHS:
-            failures.append(f"teacher: {launches[k]} {k} launches")
-    if launches["K1"]:
-        failures.append("teacher launched K1")
+    failures = [f"teacher {tag}: {launches[k]} {k} launches"
+                for k, per_epoch in expected.items()
+                if launches[k] != per_epoch * TEACHER_EPOCHS]
     if not all(math.isfinite(v) for v in run["losses"]):
-        failures.append("teacher losses not finite")
-    dump_dir = os.path.join(OUT_DIR, "teacher_dumps", "chip_smoke_teacher")
-    feats, logits = load_teacher_dump(dump_dir, 0)
-    print(f"teacher dump: features {feats.shape} logits {logits.shape}", flush=True)
-    if (feats.shape != (169343, 750) or logits.shape != (169343, 40)
-            or not (np.isfinite(feats).all() and np.isfinite(logits).all())):
-        failures.append("teacher dump not finite [N, 750] / [N, 40]")
+        failures.append(f"teacher {tag}: losses not finite")
+    return launches, failures
 
-    k1 = 0
+
+def phase_teacher_slice():
+    """The teacher CLI at arxiv shape with the flags of
+    ``experiments/arxiv_hard.sh`` step 1 (``--no-attn-dst``: the hub attention
+    path, K1 alone) and again with attn-dst on (K2, K4-K7), every kernel
+    counted; then the student from the flagship teacher's dump in ``kd``,
+    ``nce`` and ``gcd`` mode (K1 counted). Returns (launches by kernel, summed
+    over the runs, and failures)."""
+    import numpy as np
+
+    from efficient_gnns_tpu_torch.distill import load_teacher_dump
+
+    launches, failures = _teacher_run(TEACHER, TEACHER_LAUNCHES)
+    more, fails = _teacher_run(TEACHER_ATTN_DST, TEACHER_ATTN_DST_LAUNCHES)
+    launches = {k: v + more[k] for k, v in launches.items()}
+    failures += fails
+    dump_dir = os.path.join(OUT_DIR, "teacher_dumps", "chip_smoke_teacher")
     try:
+        feats, logits = load_teacher_dump(dump_dir, 0)
+        print(f"teacher dump: features {feats.shape} logits {logits.shape}", flush=True)
+        if (feats.shape != (169343, 750) or logits.shape != (169343, 40)
+                or not (np.isfinite(feats).all() and np.isfinite(logits).all())):
+            failures.append("teacher dump not finite [N, 750] / [N, 40]")
+        del feats, logits
         for training, extra in (("kd", ["--alpha", "0.9", "--kd_T", "4"]),
                                 ("nce", NCE), ("gcd", NCE)):
             n, fails = _student("chip_smoke_dump", "gcn", training,
                                 HARD_U + extra + ["--teacher_dir", dump_dir])
-            k1, failures = k1 + n, failures + fails
+            launches["K1"] += n
+            failures += fails
     finally:  # the dump is 0.5 GB: too large to keep among the run's outputs
         shutil.rmtree(os.path.dirname(dump_dir))
-    launches["K1"] = k1
     return launches, failures
 
 
@@ -1037,19 +1233,23 @@ def _steady_ms(chunk, epochs):
 
 
 def phase_teacher_profile(ds):
-    """One teacher epoch at arxiv shape under torch.profiler, and the steady
-    epoch time over three more."""
+    """One epoch of each teacher at arxiv shape under torch.profiler (the
+    flagship ``--no-attn-dst`` on the hub path, then attn-dst on the edge
+    softmax), and the steady epoch time of each over three more."""
     from efficient_gnns_tpu_torch.train import GATTeacherTrainer
 
-    cfg = _teacher_config(input_drop=0.25, edge_drop=0.3)
-    trainer = GATTeacherTrainer(cfg, ds.graph, ds.x, ds.y, ds.split_idx,
-                                ds.num_classes, device=DEVICE)
-    best, _ = trainer.run_epochs(1, 1)  # warm-up
-    _profile("teacher", lambda: trainer.run_epochs(2, 1, best), 1,
-             also=("thin_reduce", "tile_rows_thin"))
-    ms = _steady_ms(lambda: trainer.run_epochs(3, 3, best), 3)
-    print(f"teacher steady epoch (3 warm epochs, one chunk, host clock): {ms:.2f} ms",
-          flush=True)
+    for tag, no_attn_dst, also in (
+            ("teacher", True, ("split_segment_sum", "split_reduce")),
+            ("teacher_attn_dst", False, ("thin_reduce", "tile_rows_thin", "split_sddmm"))):
+        cfg = _teacher_config(no_attn_dst, input_drop=0.25, edge_drop=0.3)
+        trainer = GATTeacherTrainer(cfg, ds.graph, ds.x, ds.y, ds.split_idx,
+                                    ds.num_classes, device=DEVICE)
+        best, _ = trainer.run_epochs(1, 1)  # warm-up
+        _profile(tag, lambda: trainer.run_epochs(2, 1, best), 1, also=also)
+        ms = _steady_ms(lambda: trainer.run_epochs(3, 3, best), 3)
+        print(f"{tag} steady epoch (3 warm epochs, one chunk, host clock): {ms:.2f} ms",
+              flush=True)
+        del trainer, best
 
 
 def phase_student_profile(ds):
@@ -1070,8 +1270,8 @@ def phase_student_profile(ds):
 
 
 PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
-          "thin_group_sweep", "reference", "teacher_reference", "slice", "teacher_slice", "runtime_spmm",
-          "teacher_profile", "student_profile")
+          "thin_group_sweep", "reference", "teacher_reference", "hub_attention", "slice",
+          "teacher_slice", "runtime_spmm", "teacher_profile", "student_profile")
 
 
 def main(argv=None) -> int:
@@ -1126,17 +1326,24 @@ def main(argv=None) -> int:
         failures.append("cuda trainer disagrees with the cpu trainer")
     if run("teacher_reference", phase_teacher_reference) is False:
         failures.append("cuda teacher trainer disagrees with the cpu trainer")
+    failures += run("hub_attention", phase_hub_attention) or []
     k1_launches, slice_failures = run("slice", phase_slice) or (0, [])
     launches, teacher_failures = run("teacher_slice", phase_teacher_slice) or ({}, [])
     rt_launches, rt_failures = run("runtime_spmm", phase_runtime_spmm, ds.graph) or ({}, [])
     failures += slice_failures + teacher_failures + rt_failures
-    run("teacher_profile", phase_teacher_profile, ds)
     run("student_profile", phase_student_profile, ds)
+    if "teacher_profile" in chosen:
+        # the teacher's graph, as its CLI builds it: unweighted, with the hub
+        # partition that the flagship teacher's hub attention path needs
+        del ds
+        ds = synthetic_node_dataset(num_nodes=169343, num_edges=1166243, seed=42,
+                                    gcn_norm=False)
+        run("teacher_profile", phase_teacher_profile, ds)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
     launches["K1"] = k1_launches + launches.get("K1", 0) + rt_launches.get("K1", 0)
-    launches["K3"] = rt_launches.get("K3", 0)
+    launches["K3"] = launches.get("K3", 0) + rt_launches.get("K3", 0)
     for r in records:  # a shape that the paths never launch counts 0
         on_path = r.get("on_main_path", True)
         r["launches"] = launches.get(r["name"].split()[0], 0) if on_path else 0

@@ -10,12 +10,14 @@ features) in the ``.npz`` format of ``distill/artifacts.py`` under
 ``<out-dir>/teacher_dumps/<expt-name>/``, which the student CLI reads with
 ``--teacher_dir``. The command writes ``<out-dir>/gat_teacher_<expt-name>.json``.
 
+The graph is built unweighted with the hub partition (``hub_dense="auto"``),
+as the JAX CLI builds it: with ``--no-attn-dst`` the teacher then takes the
+hub attention path (``ops/hub_attention.py``) on graphs of 200k edges or
+more, and the exact edge softmax below that.
+
 Ported so far: ``--dataset synthetic``. The best-validation msgpack
 checkpoint that the JAX CLI writes beside the dump waits for
-``train/checkpoint.py`` (ROADMAP.md Queue 1 item 6). ``--no-attn-dst`` runs
-the edge-softmax attention without the destination term on every graph; the
-JAX package instead takes its hub path on graphs of 200k edges or more
-(ROADMAP.md Queue 1 item 7).
+``train/checkpoint.py`` (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ def main(argv=None) -> dict:
 
     ds = synthetic_node_dataset(
         num_nodes=args.num_nodes, num_edges=args.num_edges, seed=42,
-        gcn_norm=False, signal=args.signal, label_noise=args.label_noise,
+        hub_dense="auto", gcn_norm=False, signal=args.signal, label_noise=args.label_noise,
         feat_sparse=args.feat_sparse, train_frac=args.train_frac,
         n_super=args.n_super, sub_scale=args.sub_scale,
     )

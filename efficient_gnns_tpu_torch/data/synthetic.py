@@ -16,7 +16,7 @@ from efficient_gnns_tpu_torch.graphs.preprocess import build_graph
 
 
 class NodeDataset(NamedTuple):
-    graph: Graph  # bidirected + self loops + GCN norm weights, on the CPU
+    graph: Graph  # bidirected + self loops (+ GCN norm weights, hub partition), on the CPU
     x: np.ndarray  # float32 [N, F]
     y: np.ndarray  # int32 [N]
     split_idx: Dict[str, np.ndarray]  # train/valid/test node ids
@@ -51,6 +51,7 @@ def synthetic_node_dataset(
     n_super: int = 0,
     sub_scale: float = 0.4,
     pad_nodes_to: Optional[int] = None,
+    hub_dense="auto",
     gcn_norm: bool = True,
 ) -> NodeDataset:
     """ogbn-arxiv-shaped synthetic dataset (defaults = real arxiv sizes).
@@ -59,6 +60,9 @@ def synthetic_node_dataset(
     ``label_noise`` relabels that fraction of nodes, ``feat_sparse`` blanks
     the prototype of that fraction of nodes, and ``n_super > 0`` arranges
     the classes into confusable superclasses (see the JAX counterpart).
+    ``hub_dense`` and ``gcn_norm`` go to :func:`build_graph`: an attention
+    graph (``gcn_norm=False``) of 200k edges or more then carries the hub
+    partition that the ``--no-attn-dst`` teacher's hub path needs.
     """
     rng = np.random.default_rng(seed)
     s, r = _powerlaw_edges(rng, num_nodes, num_edges)
@@ -105,6 +109,7 @@ def synthetic_node_dataset(
         s, r, num_nodes,
         bidirected=True, self_loops=True,
         pad_nodes_to=pad_nodes_to,
+        hub_dense=hub_dense,
         gcn_norm=gcn_norm,
     )
     if pad_nodes_to is not None and pad_nodes_to > num_nodes:

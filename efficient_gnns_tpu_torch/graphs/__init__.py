@@ -1,4 +1,5 @@
 from efficient_gnns_tpu_torch.graphs.container import Graph
+from efficient_gnns_tpu_torch.graphs.hub_dense import HubPartition, auto_hub_size
 from efficient_gnns_tpu_torch.graphs.preprocess import (
     add_self_loops,
     build_graph,
@@ -11,19 +12,23 @@ from efficient_gnns_tpu_torch.graphs.row_split import (
     ROW_SPLIT_THRESHOLD,
     RowSplit,
     build_row_split,
+    sddmm_by_split,
     segment_reduce_by_split,
 )
 
 __all__ = [
     "Graph",
+    "HubPartition",
     "ROW_SPLIT_THRESHOLD",
     "RowSplit",
     "add_self_loops",
+    "auto_hub_size",
     "build_graph",
     "build_row_split",
     "gcn_norm_weights",
     "induced_subgraph",
     "pad_length",
+    "sddmm_by_split",
     "segment_reduce_by_split",
     "to_bidirected",
 ]

@@ -18,8 +18,10 @@ graph build, so the backward SpMM reads it without a per-step permutation.
 There is no ``EdgeBlocking``: receiver-sorted CSR is the layout the CUDA
 kernels walk directly. In its place the graph carries the chunk schedule of
 its long rows in both orders (``row_split`` / ``t_row_split``,
-``graphs/row_split.py``), which K1, K2, K5 and K6 use to split power-law hub
-rows.
+``graphs/row_split.py``), which the CSR kernels use to split power-law hub
+rows. A graph built with ``hub_dense`` also carries the hub partition of its
+edges (``graphs/hub_dense.py``), which decides the edge-drop masks of the hub
+attention path.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from efficient_gnns_tpu_torch.graphs.hub_dense import HubPartition
 from efficient_gnns_tpu_torch.graphs.row_split import RowSplit
 
 
@@ -54,6 +57,7 @@ class Graph:
       row_split, t_row_split: the chunk schedules of ``row_offsets`` and
         ``t_row_offsets`` (``build_graph`` attaches both; without them K1, K2,
         K5 and K6 derive the schedule at every call, with a host copy).
+      hub: optional :class:`HubPartition` (``build_graph(hub_dense=...)``).
     """
 
     senders: torch.Tensor
@@ -71,6 +75,7 @@ class Graph:
     node_scale: Optional[torch.Tensor] = None
     row_split: Optional[RowSplit] = None
     t_row_split: Optional[RowSplit] = None
+    hub: Optional[HubPartition] = None
 
     @property
     def num_edges_padded(self) -> int:
@@ -94,13 +99,14 @@ class Graph:
         return (self.t_row_offsets[1:] - self.t_row_offsets[:-1]).float()
 
     def to(self, device) -> "Graph":
-        """A copy with every tensor (and both row splits) on ``device``."""
+        """A copy with every tensor (and both row splits and the hub
+        partition) on ``device``."""
         return dataclasses.replace(
             self,
             **{
                 f.name: getattr(self, f.name).to(device)
                 for f in dataclasses.fields(self)
-                if isinstance(getattr(self, f.name), (torch.Tensor, RowSplit))
+                if isinstance(getattr(self, f.name), (torch.Tensor, RowSplit, HubPartition))
             },
         )
 
@@ -127,4 +133,5 @@ class Graph:
             node_scale=self.node_scale,  # symmetric: S A S transposes to itself
             row_split=self.t_row_split,
             t_row_split=self.row_split,
+            hub=None if self.hub is None else self.hub.transpose(),
         )

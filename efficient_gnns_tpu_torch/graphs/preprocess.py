@@ -6,9 +6,11 @@ padded :class:`Graph` with both CSR offset arrays. The sort and dedup use the
 NumPy forms of the JAX package's native helpers (``np.lexsort`` and
 ``np.unique``), which give the identical edge order.
 
-Not ported here: the Pallas edge blockings and the hub-dense split (TPU
+Not ported here: the Pallas edge blockings and the hub-dense slices (TPU
 layouts; the CUDA kernels walk CSR over all edges, with the long rows cut
 into chunks by ``graphs/row_split.py``) and per-edge types. See ROADMAP.md.
+The hub partition itself is built (``hub_dense``), because it decides the
+edge-drop masks of the hub attention path.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
+from efficient_gnns_tpu_torch.graphs.hub_dense import auto_hub_size, build_hub_partition
 from efficient_gnns_tpu_torch.graphs.row_split import build_row_split
 
 
@@ -82,6 +85,7 @@ def build_graph(
     edge_pad_multiple: int = 1024,
     n_node_valid: Optional[int] = None,
     gcn_norm: bool = False,
+    hub_dense=0,
 ) -> Graph:
     """Build a :class:`Graph` on the CPU from a raw COO edge list.
 
@@ -100,6 +104,14 @@ def build_graph(
         mode). The string ``"factored"`` instead stores the per-node scale
         ``d^-1/2`` as ``Graph.node_scale`` and keeps the adjacency
         unweighted: ``spmm`` then computes ``S (A (S x))``, the same math.
+      hub_dense: hub width of the hub partition (``graphs/hub_dense.py``),
+        or 0 for none. ``"auto"`` takes the JAX package's rule
+        (``graphs/preprocess.py`` there): 0 below 200k edges, else 512 for a
+        graph without static weights or factored scales (an attention
+        graph) and 256 otherwise, as far as the dense slices the JAX package
+        builds would fit its memory budget. The JAX default ``"auto"``
+        applies only with ``block=True`` there, hence 0 here; the synthetic
+        dataset passes ``"auto"``.
     """
     senders = np.asarray(senders, dtype=np.int64)
     receivers = np.asarray(receivers, dtype=np.int64)
@@ -154,6 +166,11 @@ def build_graph(
             ew = np.zeros(e_pad, dtype=np.float32)
             ew[:e] = (inv_sqrt[s_csr] * inv_sqrt[r_csr]).astype(np.float32)
 
+    h = (auto_hub_size(n_pad, e, itemsize=2 if ew is None else 4,
+                       widths=(512, 256) if ew is None and node_scale is None else (256,))
+         if hub_dense == "auto" else int(hub_dense))
+    hub = build_hub_partition(s_csr, r_csr, num_nodes, h, h) if h > 0 else None
+
     n_valid = num_nodes if n_node_valid is None else n_node_valid
     row_offsets = _csr_offsets(r_csr, n_pad)
     t_row_offsets = _csr_offsets(t_r, n_pad)
@@ -173,6 +190,7 @@ def build_graph(
         node_scale=None if node_scale is None else torch.from_numpy(node_scale),
         row_split=build_row_split(row_offsets),
         t_row_split=build_row_split(t_row_offsets),
+        hub=hub,
     )
 
 

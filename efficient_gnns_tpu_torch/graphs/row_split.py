@@ -15,10 +15,11 @@ alone, so the schedule is built once per graph and direction on the host
 (:func:`build_row_split`, called by ``build_graph``) and carried by the
 :class:`~efficient_gnns_tpu_torch.graphs.container.Graph` as ``row_split`` /
 ``t_row_split``: the counterpart of the JAX container's ``blocking`` /
-``t_blocking``. The kernels K1 and K2 (``ops/cuda/csrc/segment_split.cuh``)
-and K5 and K6 (``ops/cuda/csrc/segment_thin.cu``) walk it;
-:func:`segment_reduce_by_split` executes the same schedule in plain PyTorch,
-as a sum or a max.
+``t_blocking``. The kernels K1 and K2 (``ops/cuda/csrc/segment_split.cuh``),
+K3 and K4 (``ops/cuda/csrc/split_sddmm.cuh``: a chunk writes its own edges'
+dots, no second pass) and K5 and K6 (``ops/cuda/csrc/segment_thin.cu``) walk
+it; :func:`segment_reduce_by_split` executes the same schedule in plain
+PyTorch, as a sum or a max, and :func:`sddmm_by_split` as K3 and K4 do.
 """
 
 from __future__ import annotations
@@ -147,3 +148,33 @@ def segment_reduce_by_split(vals: torch.Tensor, row_offsets: torch.Tensor,
                                     output_size=split.num_chunks)
     return reduce_into(out, owner, partials)  # the long rows of out still hold init
 
+
+def sddmm_by_split(g: torch.Tensor, x: torch.Tensor, src: torch.Tensor,
+                   row_offsets: torch.Tensor, split: RowSplit,
+                   num_heads: int = 1) -> torch.Tensor:
+    """``dw[e, h] = <g[r, h], x[src[e], h]>`` (float32 ``[E_pad, H]``) computed
+    as K3 and K4 walk the schedule, in plain PyTorch: each short row reads
+    its own row of ``g`` for its edges, each chunk the row it names in
+    ``split.chunks``; an edge that no unit covers reads a NaN row. Padding
+    edges get 0 and their senders are never read."""
+    num_rows, dev = row_offsets.numel() - 1, g.device
+    e, e_pad = split.num_edges, src.shape[0]
+    deg = (row_offsets[1:] - row_offsets[:-1]).long()
+    rows = torch.repeat_interleave(torch.arange(num_rows, device=dev), deg, output_size=e)
+    unit_row = torch.full((e,), num_rows, dtype=torch.long, device=dev)
+    short = (deg <= split.threshold)[rows]
+    unit_row[short] = rows[short]
+    chunks = split.chunks.long()
+    size = chunks[:, 2] - chunks[:, 1]
+    total = int(size.sum())
+    chunk_of = torch.repeat_interleave(torch.arange(split.num_chunks, device=dev), size,
+                                       output_size=total)
+    start = torch.cumsum(size, 0) - size
+    edge = chunks[chunk_of, 1] + torch.arange(total, device=dev) - start[chunk_of]
+    unit_row[edge] = chunks[chunk_of, 0]
+    g_nan = torch.cat([g.float(), g.new_full((1, g.shape[1]), float("nan"), dtype=torch.float32)])
+    d = x.shape[1] // num_heads
+    prod = g_nan[unit_row] * x[src[:e].long()].float()
+    out = torch.zeros((e_pad, num_heads), dtype=torch.float32, device=dev)
+    out[:e] = prod.view(e, num_heads, d).sum(-1)
+    return out

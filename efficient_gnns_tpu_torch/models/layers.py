@@ -11,7 +11,7 @@ initial weights on every device. A dense kernel keeps the flax layout
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -19,6 +19,7 @@ from torch import nn
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.ops import spmm, spmm_mean
 from efficient_gnns_tpu_torch.ops.attention import gat_attention, sample_edge_masks
+from efficient_gnns_tpu_torch.ops.hub_attention import hub_gat_attention, supports_hub_attention
 
 
 class MaskedBatchNorm(nn.Module):
@@ -130,29 +131,36 @@ def relu_gain_xavier_normal(shape, generator: torch.Generator) -> torch.Tensor:
 
 class DGLGATConv(nn.Module):
     """The reference's DGL GAT convolution (``arxiv_dgl/models.py:95-236``):
-    LeakyReLU(0.2) attention with
-    separate ``attn_l`` / ``attn_r`` score vectors and the attn-dst switch,
-    symmetric-norm pre/post scaling (``deg_out^-1/2`` on the source features,
-    ``deg_in^1/2`` on the output), edge-drop before the softmax
-    normalisation, attention dropout, and a residual no-bias linear.
+    LeakyReLU(``negative_slope``) attention with separate ``attn_l`` /
+    ``attn_r`` score vectors and the attn-dst switch, symmetric-norm
+    pre/post scaling (``deg_out^-1/2`` on the source features, ``deg_in^1/2``
+    on the output), edge-drop before the softmax normalisation, attention
+    dropout, a residual no-bias linear and an optional ``activation``.
 
-    The attention runs on :func:`~efficient_gnns_tpu_torch.ops.attention.
-    gat_attention` for every graph: the JAX layer's hub-dense branch (taken
-    without attn-dst on hub graphs) is not ported, and without attn-dst the
-    port computes the function of the JAX layer on graphs without a hub
-    split. Dense kernels keep the flax layout ``[in, out]``: ``fc_weight`` is
-    flax ``Dense_0``, ``res_weight`` ``Dense_1``.
+    The attention takes the JAX layer's branches. Without attn-dst and
+    attention dropout, on a graph with a hub partition (``build_graph(
+    hub_dense=...)``; the teacher's graphs of 200k edges or more),
+    :func:`~efficient_gnns_tpu_torch.ops.hub_attention.hub_gat_attention`:
+    one SpMM with a global max shift, hub message dtype and hashed edge-drop
+    masks, drawing one uint32 drop seed per call from ``generator`` in
+    training. Everywhere else the exact edge softmax of
+    :func:`~efficient_gnns_tpu_torch.ops.attention.gat_attention`. Dense
+    kernels keep the flax layout ``[in, out]``: ``fc_weight`` is flax
+    ``Dense_0``, ``res_weight`` ``Dense_1``.
     """
 
     def __init__(self, in_feats: int, out_feats: int, num_heads: int = 1,
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
-                 edge_drop: float = 0.0, use_attn_dst: bool = True, residual: bool = False,
-                 use_symmetric_norm: bool = False, *,
+                 edge_drop: float = 0.0, negative_slope: float = 0.2,
+                 use_attn_dst: bool = True, residual: bool = False,
+                 use_symmetric_norm: bool = False,
+                 activation: Optional[Callable[[torch.Tensor], torch.Tensor]] = None, *,
                  generator: torch.Generator, device="cuda"):
         super().__init__()
         h, d = num_heads, out_feats
         self.num_heads, self.out_feats = h, d
         self.feat_drop, self.attn_drop, self.edge_drop = feat_drop, attn_drop, edge_drop
+        self.negative_slope, self.activation = negative_slope, activation
         self.use_symmetric_norm = use_symmetric_norm
 
         def param(shape):
@@ -174,21 +182,31 @@ class DGLGATConv(nn.Module):
             degs = graph.out_degrees().clamp_min(1.0)
             feat_src = feat_src * torch.rsqrt(degs)[:, None, None].to(feat.dtype)
         el = torch.einsum("nhd,dh->nh", feat_src.float(), self.attn_l)
-        er = None
-        if self.attn_r is not None:
-            er = torch.einsum("nhd,dh->nh", feat.float(), self.attn_r)
-        keep = attn = None
-        if self.training and (self.edge_drop > 0 or self.attn_drop > 0):
-            keep, attn = sample_edge_masks(graph, generator, self.edge_drop,
-                                           self.attn_drop, h)
-        rst = gat_attention(graph, feat_src, el, er,
-                            negative_slope=0.2, keep_mask=keep,
-                            attn_keep=attn, attn_keep_prob=1.0 - self.attn_drop)
+        if self.attn_r is None and self.attn_drop == 0.0 and supports_hub_attention(graph):
+            drop_seed = None
+            if self.training and self.edge_drop > 0:
+                drop_seed = torch.randint(0, 2**32, (), generator=generator,
+                                          device=x.device, dtype=torch.int64)
+            rst = hub_gat_attention(graph, feat_src, el, negative_slope=self.negative_slope,
+                                    edge_drop=self.edge_drop, drop_seed=drop_seed)
+        else:
+            er = None
+            if self.attn_r is not None:
+                er = torch.einsum("nhd,dh->nh", feat.float(), self.attn_r)
+            keep = attn = None
+            if self.training and (self.edge_drop > 0 or self.attn_drop > 0):
+                keep, attn = sample_edge_masks(graph, generator, self.edge_drop,
+                                               self.attn_drop, h)
+            rst = gat_attention(graph, feat_src, el, er,
+                                negative_slope=self.negative_slope, keep_mask=keep,
+                                attn_keep=attn, attn_keep_prob=1.0 - self.attn_drop)
         if self.use_symmetric_norm:
             degs = graph.in_degrees().clamp_min(1.0)
             rst = rst * torch.sqrt(degs)[:, None, None].to(rst.dtype)
         if self.res_weight is not None:
             rst = rst + (x @ self.res_weight).view(-1, h, d)
+        if self.activation is not None:
+            rst = self.activation(rst)
         return rst  # [N, H, D]
 
 

@@ -3,8 +3,8 @@
 
 The JAX package runs this pipeline in the TPU's blocked edge order; the port
 runs the same function over the receiver-sorted CSR, launching a kernel
-wherever the JAX forward and backward call a Pallas function (K2, K5 and K6
-with the graph's row split of the edge order they walk):
+wherever the JAX forward and backward call a Pallas function (K2, K4, K5 and
+K6 with the graph's row split of the edge order they walk):
 
 * forward: K7 reads ``er`` onto the edges, K6 takes each row's maximum, K7
   broadcasts it back, K5 sums the exponentials, K7 broadcasts the
@@ -88,7 +88,7 @@ class _GATAttention(torch.autograd.Function):
         n, h = xf.shape[0], a.shape[1]
         gf = g.reshape(n, -1).float().contiguous()
 
-        da = csr_sddmm_heads(gf, xf, graph.senders, recv, ro, h)
+        da = csr_sddmm_heads(gf, xf, graph.senders, ro, h, graph.row_split)
         if attn_keep is not None:
             da = torch.where(attn_keep, da / ctx.attn_keep_prob, 0.0)
         # softmax VJP per receiver: de = a * (da - sum_row(a * da))

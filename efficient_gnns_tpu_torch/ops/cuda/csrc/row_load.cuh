@@ -1,8 +1,8 @@
 // Loads of V contiguous elements of a feature row into float registers,
 // shared by the kernels that gather rows (K1 and K2 through
-// segment_split.cuh, K3 segment_sddmm.cu). V > 1 is one load of V elements
-// (16 bytes; 8 for two floats) and needs an address aligned to its size (the
-// wrappers pick a smaller V otherwise).
+// segment_split.cuh, K3 and K4 through split_sddmm.cuh). V > 1 is one load
+// of V elements (16 bytes; 8 for two floats) and needs an address aligned to
+// its size (the wrappers pick a smaller V otherwise).
 
 #pragma once
 

@@ -5,7 +5,8 @@
 //      blocked_segment_sum_heads (the TPU one-hot MXU scatter with a per-head
 //      scale, over an EdgeBlocking with 128-aligned head slices) together with
 //      the XLA row gather in front of it (ops/attention.py, ops/spmm.py).
-// K4:  dw[e, h] = sum_c g[dst[e], h*D + c] * x[src[e], h*D + c], 0 for padding
+// K4:  dw[e, h] = sum_c g[r_e, h*D + c] * x[src[e], h*D + c] (r_e: the row
+//      that holds edge e), 0 for padding
 //      Replaces segment_matmul.py::blocked_sddmm_dw_heads (the attention
 //      probabilities' cotangent and the weight gradient of spmm_heads).
 //
@@ -25,55 +26,16 @@
 // bytes where it is even (D = 250: a head starts at a multiple of 1,000
 // bytes), else 4.
 //
-// K4 design: one warp per edge. Every output belongs to one edge, so edge
-// ownership has no hub imbalance (row ownership would keep g[r] in registers
-// but walk a hub row's edges on one warp). The lanes stride the head's D
-// columns of g[dst[e]] and x[src[e]] and the head's sum is a fixed-order
-// butterfly of shuffles: deterministic. Edges past row_offsets[num_rows]
-// (padding) get 0 and read nothing.
+// K4 design: split_sddmm.cuh, on the same row walk. A (row or chunk, head)
+// task loads g[r, h, :] once into a group's registers and streams the x rows
+// of its edges, so g is read once per row and not once per edge; each edge's
+// dot has one owner, a fixed-order butterfly: deterministic, no atomics.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "segment_split.cuh"
-
-namespace {
-
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-csr_sddmm_heads_kernel(const float* __restrict__ g, const float* __restrict__ x,
-                       const int32_t* __restrict__ src,
-                       const int32_t* __restrict__ dst,
-                       const int32_t* __restrict__ row_offsets,
-                       float* __restrict__ out, int num_rows,
-                       int num_edges_padded, int num_heads, int d) {
-  const int lane = threadIdx.x & 31;
-  const int e = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (e >= num_edges_padded) return;  // uniform across the warp
-  float* out_e = out + static_cast<size_t>(e) * num_heads;
-  if (e >= row_offsets[num_rows]) {  // padding edge: never read its indices
-    for (int h = lane; h < num_heads; h += 32) out_e[h] = 0.f;
-    return;
-  }
-  const size_t hd = static_cast<size_t>(num_heads) * d;
-  const float* gr = g + static_cast<size_t>(dst[e]) * hd;
-  const float* xs = x + static_cast<size_t>(src[e]) * hd;
-  for (int h = 0; h < num_heads; ++h) {
-    float acc = 0.f;
-    for (int c = h * d + lane; c < (h + 1) * d; c += 32) {
-      acc = fmaf(__ldg(gr + c), __ldg(xs + c), acc);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      acc += __shfl_xor_sync(kFullMask, acc, off);
-    }
-    if (lane == 0) out_e[h] = acc;
-  }
-}
-
-}  // namespace
+#include "split_sddmm.cuh"
 
 extern "C" {
 
@@ -109,24 +71,28 @@ int egt_csr_segment_sum_heads(const void* x, const void* w, int vec,
 }
 
 // g: float32 [num_rows, num_heads * d] (rows by receiver), x: float32
-// [*, num_heads * d] (rows by sender), src / dst: int32 [E_pad] edge
-// endpoints in CSR order, row_offsets int32 [num_rows + 1]; out: float32
-// [E_pad, num_heads]. Returns cudaGetLastError().
-int egt_csr_sddmm_heads(const void* g, const void* x, const void* src,
-                        const void* dst, const void* row_offsets, void* out,
-                        int num_rows, int num_edges_padded, int num_heads,
-                        int d, void* stream) {
-  if (num_heads < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (num_edges_padded > 0) {
-    const dim3 block(kWarpsPerBlock * 32);
-    const dim3 grid((num_edges_padded + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    csr_sddmm_heads_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(g), static_cast<const float*>(x),
-        static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
-        static_cast<const int32_t*>(row_offsets), static_cast<float*>(out),
-        num_rows, num_edges_padded, num_heads, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+// [*, num_heads * d] (rows by sender), src: int32 [E_pad] senders in CSR
+// order, row_offsets int32 [num_rows + 1]; chunks [num_chunks, 3] is the row
+// split of row_offsets at `threshold` and num_edges = row_offsets[num_rows];
+// out: float32 [E_pad, num_heads]. vec: floats per lane load (4, 2 or 1),
+// the largest that divides d with g and x aligned to it. Returns
+// cudaGetLastError().
+int egt_csr_sddmm_heads(const void* g, const void* x, int vec, const void* src,
+                        const void* row_offsets, const void* chunks, void* out,
+                        int num_rows, int num_chunks, int num_heads, int d,
+                        int threshold, int num_edges, int num_edges_padded,
+                        void* stream) {
+  const SddmmArgs a{g, x,
+                    static_cast<const int32_t*>(src),
+                    static_cast<const int32_t*>(row_offsets),
+                    static_cast<const int32_t*>(chunks),
+                    static_cast<float*>(out),
+                    num_rows, num_chunks, num_heads, d, threshold, num_edges,
+                    num_edges_padded, static_cast<cudaStream_t>(stream)};
+  if (vec == 4) return launch_split_sddmm<float, 4>(a);
+  if (vec == 2) return launch_split_sddmm<float, 2>(a);
+  if (vec == 1) return launch_split_sddmm<float, 1>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* egt_cuda_error_string(int code) {

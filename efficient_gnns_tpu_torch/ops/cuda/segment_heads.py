@@ -2,7 +2,8 @@
 plain versions.
 
     K2  out[r, h*D:(h+1)*D] = sum_{e in row r} w[e, h] * x[src[e], h*D:(h+1)*D]
-    K4  dw[e, h] = <g[dst[e], h*D:(h+1)*D], x[src[e], h*D:(h+1)*D]>  (0 on padding)
+    K4  dw[e, h] = <g[r_e, h*D:(h+1)*D], x[src[e], h*D:(h+1)*D]>  (r_e: the row
+        of e; 0 on padding)
 
 K2 replaces ``efficient_gnns_tpu/ops/pallas/segment_matmul.py::
 blocked_segment_sum_heads`` and K4 ``blocked_sddmm_dw_heads`` (with the XLA
@@ -10,8 +11,11 @@ row gathers in front of them). The CUDA kernels are ``csrc/segment_heads.cu``:
 both bounded by device-memory bytes; K2 gives each (output row, head) pair
 one owner (no float atomics, deterministic) and sums a power-law hub row as
 chunks into partial rows that a second kernel adds in a fixed order
-(``csrc/segment_split.cuh``, ``graphs/row_split.py``), K4 one warp each edge
-(no hub imbalance). Features are float32
+(``csrc/segment_split.cuh``, ``graphs/row_split.py``). K4 walks the same
+rows and chunks (``csrc/split_sddmm.cuh``): a (row or chunk, head) task
+holds ``g[r, h]`` in registers and streams the ``x`` rows of its edges, so
+``g`` is read once per row; each edge's dot has one owner and a fixed
+order (deterministic, the same bits with any split). Features are float32
 ``[rows, H*D]`` with the heads side by side (no padding of D), head weights
 float32 ``[E_pad, H]``, indices int32.
 
@@ -40,7 +44,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.egt_csr_segment_sum_heads.argtypes = [p, p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
         lib.egt_csr_segment_sum_heads.restype = i
-        lib.egt_csr_sddmm_heads.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        lib.egt_csr_sddmm_heads.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.egt_csr_sddmm_heads.restype = i
         lib.egt_cuda_error_string.argtypes = [i]
         lib.egt_cuda_error_string.restype = ctypes.c_char_p
@@ -127,48 +131,56 @@ def csr_segment_sum_heads(x, w, src, row_offsets,
 csr_segment_sum_heads.launches = 0
 
 
-def csr_sddmm_heads_plain(g, x, src, dst, row_offsets, num_heads: int) -> torch.Tensor:
+def csr_sddmm_heads_plain(g, x, src, row_offsets, num_heads: int) -> torch.Tensor:
     """The plain PyTorch version of K4: gather both rows, multiply, sum each
     head's columns, over chunks of edges; 0 on padding edges."""
     e_pad, e = src.shape[0], int(row_offsets[-1])
+    rows = csr_row_ids(row_offsets, e)
     d = x.shape[1] // num_heads
     out = x.new_zeros((e_pad, num_heads), dtype=torch.float32)
     step = max(1, _CHUNK_ELEMENTS // max(1, x.shape[1]))
     for lo in range(0, e, step):
         hi = min(e, lo + step)
-        prod = gather(g, dst[lo:hi]) * gather(x, src[lo:hi])
+        prod = gather(g, rows[lo:hi]) * gather(x, src[lo:hi])
         out[lo:hi] = prod.view(-1, num_heads, d).sum(-1)
     return out
 
 
-def csr_sddmm_heads(g, x, src, dst, row_offsets, num_heads: int) -> torch.Tensor:
-    """float32[E_pad, H] per-edge head dots ``<g[dst_e, h], x[src_e, h]>`` (K4).
+def csr_sddmm_heads(g, x, src, row_offsets, num_heads: int,
+                    split: Optional[RowSplit] = None) -> torch.Tensor:
+    """float32[E_pad, H] per-edge head dots ``<g[r_e, h], x[src_e, h]>`` (K4).
 
     ``g`` is ``[num_rows, H*D]`` (rows by receiver), ``x`` ``[*, H*D]`` (rows
-    by sender), ``src`` / ``dst`` the edge endpoints in CSR order. Edges past
-    ``row_offsets[-1]`` get 0 and their indices are never read. On a CUDA
+    by sender), ``src`` the senders in CSR order. Edges past
+    ``row_offsets[-1]`` get 0 and their indices are never read. ``split`` is
+    the row split of ``row_offsets`` (``Graph.row_split``); without it the
+    split is derived here, which costs a host copy per call. On a CUDA
     tensor this launches the kernel (counted in ``csr_sddmm_heads.launches``)
     or raises.
     """
     name = "csr_sddmm_heads"
-    _check(name, {"g": g, "x": x},
-           {"src": src, "dst": dst, "row_offsets": row_offsets}, num_heads)
+    _check(name, {"g": g, "x": x}, {"src": src, "row_offsets": row_offsets}, num_heads)
     if (g.shape[1] != x.shape[1] or x.shape[1] % num_heads
-            or dst.shape != src.shape or g.shape[0] != row_offsets.numel() - 1):
-        raise ValueError(f"{name}: g [num_rows, H*D], x [*, H*D], src and dst "
-                         f"[E_pad] disagree: {tuple(g.shape)}, {tuple(x.shape)}, "
-                         f"{tuple(src.shape)}, {tuple(dst.shape)}")
+            or g.shape[0] != row_offsets.numel() - 1):
+        raise ValueError(f"{name}: g [num_rows, H*D], x [*, H*D] and row_offsets "
+                         f"[num_rows + 1] disagree: {tuple(g.shape)}, {tuple(x.shape)}, "
+                         f"{tuple(row_offsets.shape)}")
+    check_split(name, split, row_offsets, src)
     if x.device.type == "cpu":
-        return csr_sddmm_heads_plain(g, x, src, dst, row_offsets, num_heads)
+        return csr_sddmm_heads_plain(g, x, src, row_offsets, num_heads)
     if x.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+    if split is None:
+        split = derive_split(row_offsets)
     lib = _lib()
-    e_pad = src.shape[0]
+    e_pad, d = src.shape[0], x.shape[1] // num_heads
     out = torch.empty((e_pad, num_heads), dtype=torch.float32, device=x.device)
+    vec = min(float_vec(torch.float32, d, x.data_ptr()),
+              float_vec(torch.float32, d, g.data_ptr()))
     rc = lib.egt_csr_sddmm_heads(
-        g.data_ptr(), x.data_ptr(), src.data_ptr(), dst.data_ptr(),
-        row_offsets.data_ptr(), out.data_ptr(), row_offsets.numel() - 1, e_pad,
-        num_heads, x.shape[1] // num_heads,
+        g.data_ptr(), x.data_ptr(), vec, src.data_ptr(), row_offsets.data_ptr(),
+        split.chunks.data_ptr(), out.data_ptr(), split.num_rows, split.num_chunks,
+        num_heads, d, split.threshold, split.num_edges, e_pad,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.raise_on_error(lib, rc, name)

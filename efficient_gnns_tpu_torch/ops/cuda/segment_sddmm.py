@@ -1,15 +1,19 @@
 """K3: per-edge row dots over a CSR — wrapper and plain version.
 
-    dw[e] = <g[dst[e], :], x[src[e], :]>   (0 on padding edges)
+    dw[e] = <g[r_e, :], x[src[e], :]>   (r_e: the row of e; 0 on padding edges)
 
 Replaces ``efficient_gnns_tpu/ops/pallas/segment_matmul.py::blocked_sddmm_dw``
 (with the XLA gather of ``x[src]`` in front of it and the inverse permutation
 behind it, ``ops/spmm.py::_spmm_blocked_bwd``): the edge-weight gradient of
-``spmm`` with per-call weights. The CUDA kernel is ``csrc/segment_sddmm.cu``:
-bounded by device-memory bytes; a group of 8, 16 or 32 lanes owns one edge
-(no hub imbalance, no atomics, a fixed-order butterfly: deterministic).
-``g`` and ``x`` are float32 or bfloat16 ``[rows, F]`` with F unpadded,
-indices int32; products, sums and the output are float32.
+``spmm`` with per-call weights. The CUDA kernel is ``csrc/segment_sddmm.cu``
+on ``csrc/split_sddmm.cuh``, the one-head case of K4: bounded by
+device-memory bytes; a row of at most ``RowSplit.threshold`` edges, or a
+chunk of a longer row, is one task whose lanes hold ``g[r]`` in registers
+and stream the ``x`` rows of its edges, so ``g`` is read once per row. Each
+edge's dot has one owner and a fixed order: no atomics, deterministic, and
+the same bits with any split. ``g`` and ``x`` are float32 or bfloat16
+``[rows, F]`` with F unpadded, indices int32; products, sums and the output
+are float32.
 
 :func:`csr_sddmm` runs the plain version for tensors on the CPU and the
 kernel for tensors on a CUDA device; it never moves work between them.
@@ -18,12 +22,19 @@ kernel for tensors on a CUDA device; it never moves work between them.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from efficient_gnns_tpu_torch.graphs.row_split import RowSplit
 from efficient_gnns_tpu_torch.ops.cuda import build
-from efficient_gnns_tpu_torch.ops.cuda.segment_sum import DTYPE_CODE, VEC
-from efficient_gnns_tpu_torch.ops.segment import gather
+from efficient_gnns_tpu_torch.ops.cuda.segment_sum import (
+    DTYPE_CODE,
+    check_split,
+    derive_split,
+    float_vec,
+)
+from efficient_gnns_tpu_torch.ops.segment import csr_row_ids, gather
 
 _CHUNK_ELEMENTS = 1 << 27  # the plain version gathers at most this many floats at once
 
@@ -32,30 +43,30 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("segment_sddmm")
     if lib.egt_csr_sddmm.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.egt_csr_sddmm.argtypes = [p, p, i, i, i, p, p, p, p, i, i, i, p]
+        lib.egt_csr_sddmm.argtypes = [p, p, i, i, p, p, p, p, i, i, i, i, i, i, p]
         lib.egt_csr_sddmm.restype = i
         lib.egt_cuda_error_string.argtypes = [i]
         lib.egt_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(g, x, src, dst, row_offsets) -> None:
+def _check(g, x, src, row_offsets) -> None:
     for name, t in (("g", g), ("x", x)):
         if t.dim() != 2 or t.dtype not in DTYPE_CODE:
             raise ValueError(
                 f"csr_sddmm: {name} must be 2-D float32/bfloat16, got {t.dtype} "
                 f"{tuple(t.shape)}")
-    for name, t in (("src", src), ("dst", dst), ("row_offsets", row_offsets)):
+    for name, t in (("src", src), ("row_offsets", row_offsets)):
         if t.dim() != 1 or t.dtype != torch.int32:
             raise ValueError(
                 f"csr_sddmm: {name} must be 1-D int32, got {t.dtype} {tuple(t.shape)}")
     if (g.dtype != x.dtype or g.shape[1] != x.shape[1] or g.shape[1] < 1
-            or dst.shape != src.shape or g.shape[0] != row_offsets.numel() - 1):
+            or g.shape[0] != row_offsets.numel() - 1):
         raise ValueError(
-            "csr_sddmm: g [num_rows, F], x [*, F] of one dtype, src and dst [E_pad] "
-            f"disagree: {g.dtype} {tuple(g.shape)}, {x.dtype} {tuple(x.shape)}, "
-            f"{tuple(src.shape)}, {tuple(dst.shape)}")
-    tensors = [g, x, src, dst, row_offsets]
+            "csr_sddmm: g [num_rows, F] and x [*, F] of one dtype disagree with "
+            f"row_offsets [num_rows + 1]: {g.dtype} {tuple(g.shape)}, {x.dtype} "
+            f"{tuple(x.shape)}, {tuple(row_offsets.shape)}")
+    tensors = [g, x, src, row_offsets]
     if any(t.device != g.device for t in tensors):
         raise ValueError("csr_sddmm: all tensors must be on one device")
     if any(not t.is_contiguous() for t in tensors):
@@ -64,45 +75,46 @@ def _check(g, x, src, dst, row_offsets) -> None:
         raise ValueError("csr_sddmm: int32 indexing needs < 2**31 entries per tensor")
 
 
-def csr_sddmm_plain(g, x, src, dst, row_offsets) -> torch.Tensor:
+def csr_sddmm_plain(g, x, src, row_offsets) -> torch.Tensor:
     """The plain PyTorch version: gather both rows, multiply and sum in
     float32, over chunks of edges; 0 on padding edges. Runs on any device
     (it is also the kernel's reference on the card)."""
     e_pad, e = src.shape[0], int(row_offsets[-1])
+    rows = csr_row_ids(row_offsets, e)
     out = x.new_zeros((e_pad,), dtype=torch.float32)
     step = max(1, _CHUNK_ELEMENTS // max(1, x.shape[1]))
     for lo in range(0, e, step):
         hi = min(e, lo + step)
-        out[lo:hi] = (gather(g, dst[lo:hi]).float() * gather(x, src[lo:hi]).float()).sum(-1)
+        out[lo:hi] = (gather(g, rows[lo:hi]).float() * gather(x, src[lo:hi]).float()).sum(-1)
     return out
 
 
-def csr_sddmm(g, x, src, dst, row_offsets) -> torch.Tensor:
-    """float32[E_pad] per-edge dots ``<g[dst_e], x[src_e]>`` (K3).
+def csr_sddmm(g, x, src, row_offsets, split: Optional[RowSplit] = None) -> torch.Tensor:
+    """float32[E_pad] per-edge dots ``<g[r_e], x[src_e]>`` (K3).
 
     ``g`` is ``[num_rows, F]`` (rows by receiver), ``x`` ``[*, F]`` (rows by
-    sender), ``src`` / ``dst`` the edge endpoints in CSR order. Edges past
-    ``row_offsets[-1]`` (padding) get 0 and their indices are never read. On
-    a CUDA tensor this launches the kernel (counted in
-    ``csr_sddmm.launches``) or raises.
+    sender), ``src`` the senders in CSR order. Edges past ``row_offsets[-1]``
+    (padding) get 0 and their indices are never read. ``split`` is the row
+    split of ``row_offsets`` (``Graph.row_split``); without it the split is
+    derived here, which costs a host copy per call. On a CUDA tensor this
+    launches the kernel (counted in ``csr_sddmm.launches``) or raises.
     """
-    _check(g, x, src, dst, row_offsets)
+    _check(g, x, src, row_offsets)
+    check_split("csr_sddmm", split, row_offsets, src)
     if x.device.type == "cpu":
-        return csr_sddmm_plain(g, x, src, dst, row_offsets)
+        return csr_sddmm_plain(g, x, src, row_offsets)
     if x.device.type != "cuda":
         raise ValueError(f"csr_sddmm runs on cpu or cuda, not {x.device}")
+    if split is None:
+        split = derive_split(row_offsets)
     lib = _lib()
     e_pad, f = src.shape[0], x.shape[1]
     out = torch.empty((e_pad,), dtype=torch.float32, device=x.device)
-    vec = VEC[x.dtype]
-    if f % vec or g.data_ptr() % 16 or x.data_ptr() % 16:
-        vec = 1
-    # the fewest lanes (8, 16 or 32) that cover a row in one pass of loads
-    group = next((n for n in (8, 16) if n * vec >= f), 32)
+    vec = min(float_vec(x.dtype, f, x.data_ptr()), float_vec(x.dtype, f, g.data_ptr()))
     rc = lib.egt_csr_sddmm(
-        g.data_ptr(), x.data_ptr(), DTYPE_CODE[x.dtype], vec, group,
-        src.data_ptr(), dst.data_ptr(), row_offsets.data_ptr(), out.data_ptr(),
-        row_offsets.numel() - 1, e_pad, f,
+        g.data_ptr(), x.data_ptr(), DTYPE_CODE[x.dtype], vec, src.data_ptr(),
+        row_offsets.data_ptr(), split.chunks.data_ptr(), out.data_ptr(),
+        split.num_rows, split.num_chunks, f, split.threshold, split.num_edges, e_pad,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.raise_on_error(lib, rc, "csr_sddmm")

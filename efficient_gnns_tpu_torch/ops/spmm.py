@@ -9,9 +9,9 @@ transpose's for the backward) handed to the kernels; the gradient with
 respect to ``x`` is K1 over the transpose CSR with the transpose-ordered
 weights, mirroring ``_spmm_blocked_static_bwd``; with per-call weights their
 gradient is K3 (``ops/cuda/segment_sddmm.py``), mirroring
-``_spmm_blocked_bwd``. Messages are read in ``dispatch.message_dtype()``;
-accumulation is float32 and the result takes ``x``'s dtype, as in the JAX
-blocked path.
+``_spmm_blocked_bwd``. Messages are read in ``dispatch.message_dtype()``
+(or the caller's ``message_dtype``); accumulation is float32 and the result
+takes ``x``'s dtype, as in the JAX blocked path.
 
 ``spmm_heads`` mirrors ``_spmm_heads_blocked``: the forward is K2
 (``ops/cuda/segment_heads.py``) over the CSR, ``dx`` is K2 over the
@@ -63,14 +63,15 @@ class _SpMMStatic(torch.autograd.Function):
 class _SpMMRuntime(torch.autograd.Function):
     """``out = A_w @ x`` with per-call edge weights ``w`` in CSR order:
     ``dx`` is K1 over the transpose CSR with ``w[csc_perm]``, ``dw`` the
-    per-edge dots of K3 (zeros when ``weight_grad`` is off)."""
+    per-edge dots of K3 (zeros when ``weight_grad`` is off, and then ``x``
+    is not kept for the backward)."""
 
     @staticmethod
     def forward(ctx, x, w, graph: Graph, msg_dtype, weight_grad: bool):
         wf = w.float().contiguous()
-        ctx.save_for_backward(x, wf)
+        ctx.save_for_backward(x if weight_grad else None, wf)
         ctx.graph, ctx.msg_dtype, ctx.weight_grad = graph, msg_dtype, weight_grad
-        ctx.w_dtype = w.dtype
+        ctx.x_dtype, ctx.w_dtype = x.dtype, w.dtype
         return _aggregate(x, graph.senders, graph.row_offsets, wf, graph.row_split,
                           msg_dtype, x.dtype)
 
@@ -82,11 +83,11 @@ class _SpMMRuntime(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             w_t = wf[graph.csc_perm.long()].contiguous()
             dx = _aggregate(g, graph.t_senders, graph.t_row_offsets, w_t,
-                            graph.t_row_split, msg_dtype, x.dtype)
+                            graph.t_row_split, msg_dtype, ctx.x_dtype)
         if ctx.needs_input_grad[1] and ctx.weight_grad:
             dw = csr_sddmm(
                 g.to(msg_dtype).contiguous(), x.to(msg_dtype).contiguous(),
-                graph.senders, graph.receivers, graph.row_offsets,
+                graph.senders, graph.row_offsets, graph.row_split,
             ).to(ctx.w_dtype)
         elif ctx.needs_input_grad[1]:
             dw = torch.zeros_like(wf, dtype=ctx.w_dtype)
@@ -99,6 +100,7 @@ def spmm(
     edge_weight: Optional[torch.Tensor] = None,
     transpose: bool = False,
     weight_grad: bool = True,
+    message_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
     """``out[r] = sum_{e:(s->r)} w_e * x[s]`` — message passing aggregation.
 
@@ -111,6 +113,9 @@ def spmm(
       transpose: aggregate over the reversed edges instead.
       weight_grad: set False when ``edge_weight`` carries no gradient, to
         skip K3 in the backward (its gradient is then 0).
+      message_dtype: dtype in which K1 reads the messages (and the
+        backward the cotangent); None takes ``dispatch.message_dtype()``.
+        The hub attention path passes ``dispatch.hub_message_dtype()``.
     """
     if x.dim() != 2 or x.shape[0] != graph.num_nodes:
         raise ValueError(
@@ -129,17 +134,17 @@ def spmm(
         # factored symmetric normalization over the unweighted structure
         scale = graph.node_scale[:, None]
         inner = dataclasses.replace(graph, node_scale=None)
-        out = spmm(inner, (x * scale).to(x.dtype))
+        out = spmm(inner, (x * scale).to(x.dtype), message_dtype=message_dtype)
         return (out * scale).to(x.dtype)
+    msg_dtype = dispatch.message_dtype() if message_dtype is None else message_dtype
     if edge_weight is not None:
         if tuple(edge_weight.shape) != (graph.num_edges_padded,):
             raise ValueError(
                 f"spmm: edge_weight must be [E_pad={graph.num_edges_padded}], got "
                 f"{tuple(edge_weight.shape)}"
             )
-        return _SpMMRuntime.apply(x, edge_weight, graph, dispatch.message_dtype(),
-                                  weight_grad)
-    return _SpMMStatic.apply(x, graph, dispatch.message_dtype())
+        return _SpMMRuntime.apply(x, edge_weight, graph, msg_dtype, weight_grad)
+    return _SpMMStatic.apply(x, graph, msg_dtype)
 
 
 def spmm_mean(
@@ -196,8 +201,8 @@ class _SpMMHeads(torch.autograd.Function):
                                        graph.t_row_split)
             dx = dx.view(n, h, -1).to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
-            dw = csr_sddmm_heads(gf, xf, graph.senders, graph.receivers,
-                                 graph.row_offsets, h).to(ctx.w_dtype)
+            dw = csr_sddmm_heads(gf, xf, graph.senders, graph.row_offsets, h,
+                                 graph.row_split).to(ctx.w_dtype)
         return dx, dw, None
 
 

@@ -242,5 +242,19 @@ class GATTeacherTrainer:
         finally:
             self.model.load_state_dict(current)
 
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        """One train step (the generator seeded from ``(seed, epoch)``);
+        returns its ``loss`` and ``train_acc``, read on the host."""
+        loss, train_acc = self._train_step(epoch)
+        return {"loss": float(loss), "train_acc": float(train_acc)}
+
+    def evaluate(self):
+        """``(logits, feats, (acc_tr, acc_va, acc_te), (loss_tr, loss_va,
+        loss_te))`` of a full-graph evaluation forward with the train labels
+        fed."""
+        logits, feats, accs, losses = self._eval_step()
+        return (logits, feats, tuple(float(a) for a in accs),
+                tuple(float(v) for v in losses))
+
     def num_params(self) -> int:
         return sum(p.numel() for p in self.model.parameters())

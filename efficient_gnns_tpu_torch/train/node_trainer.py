@@ -13,7 +13,7 @@ device-resident tensors, as the reference loads its GAT dumps.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -172,7 +172,7 @@ class NodeDistillTrainer:
         self.model.eval()
         logits, _ = self.model(self.graph, self.x)
         pred = logits.argmax(-1)
-        return tuple(
+        return logits, tuple(
             (pred[self.split_idx[k]] == self.y[self.split_idx[k]]).float().mean()
             for k in ("train", "valid", "test")
         )
@@ -183,5 +183,17 @@ class NodeDistillTrainer:
         rows = []
         for epoch in range(start_epoch, start_epoch + k):
             losses = self._train_step(epoch)
-            rows.append(torch.stack([*losses, *self._eval_step()]))
+            rows.append(torch.stack([*losses, *self._eval_step()[1]]))
         return torch.stack(rows).float().cpu().numpy()
+
+    def train_epoch(self, epoch: int) -> Dict[str, float]:
+        """One train step (the generator seeded from ``(seed, epoch)``);
+        returns its ``loss``, ``loss_cls`` and ``loss_aux``, read on the host."""
+        losses = self._train_step(epoch)
+        return dict(zip(("loss", "loss_cls", "loss_aux"), (float(v) for v in losses)))
+
+    def evaluate(self) -> Tuple[torch.Tensor, Tuple[float, float, float]]:
+        """``(logits, (acc_train, acc_valid, acc_test))`` of a full-graph
+        evaluation forward."""
+        logits, accs = self._eval_step()
+        return logits, tuple(float(a) for a in accs)

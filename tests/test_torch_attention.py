@@ -46,7 +46,7 @@ from efficient_gnns_tpu.ops.pallas import (
     blocked_segment_sum_thin,
     tile_rows_thin,
 )
-from efficient_gnns_tpu_torch.graphs import build_graph, build_row_split
+from efficient_gnns_tpu_torch.graphs import build_graph, build_row_split, sddmm_by_split
 from efficient_gnns_tpu_torch.ops import dispatch, edge_softmax, sddmm_add, spmm_heads
 from efficient_gnns_tpu_torch.ops.attention import gat_attention, sample_edge_masks
 from efficient_gnns_tpu_torch.ops.cuda import (
@@ -196,14 +196,15 @@ def test_segment_sum_heads_matches_pallas(rng, graphs, direction):
 @pytest.mark.parametrize("direction", [0, 1])
 def test_sddmm_heads_matches_pallas(rng, graphs, direction):
     jg, tg = graphs
-    blk, src, dst, ro, perm = _directions(jg, tg)[direction]
+    blk, src, _, ro, perm = _directions(jg, tg)[direction]
+    split = (tg.row_split, tg.t_row_split)[direction]
     g = rng.normal(size=(N, H * D)).astype(np.float32)
     x = rng.normal(size=(N, H * D)).astype(np.float32)
     gt = jnp.zeros((blk.num_tiles * blk.tm, H * 128)).at[:N].set(_pad_heads(g))
     x_blk = _pad_heads(x)[np.asarray(blk.src)]
     # both blockings' slots map to forward CSR edge ids: compare there
     want = _to_csr(blocked_sddmm_dw_heads(gt, x_blk, blk, H, interpret=True), blk, tg)
-    got = csr_sddmm_heads(torch.from_numpy(g), torch.from_numpy(x), src, dst, ro, H)
+    got = csr_sddmm_heads(torch.from_numpy(g), torch.from_numpy(x), src, ro, H, split)
     got_csr = np.zeros_like(want)
     got_csr[perm[: tg.n_edge]] = got.numpy()[: tg.n_edge]
     np.testing.assert_allclose(got_csr, want, rtol=1e-5, atol=1e-5)
@@ -333,8 +334,7 @@ def test_wrappers_check_inputs_and_skip_padding(rng, graphs):
     with pytest.raises(ValueError, match="disagree"):
         csr_segment_sum_heads(torch.randn(N, H * D - 1), w, tg.senders, tg.row_offsets)
     with pytest.raises(ValueError, match="contiguous"):
-        csr_sddmm_heads(x, torch.randn(H * D, N).t(), tg.senders, tg.receivers,
-                        tg.row_offsets, H)
+        csr_sddmm_heads(x, torch.randn(H * D, N).t(), tg.senders, tg.row_offsets, H)
     with pytest.raises(ValueError, match="H <= 8"):
         csr_segment_sum_thin(torch.randn(tg.num_edges_padded, 9), tg.row_offsets)
     with pytest.raises(ValueError, match="one row per CSR row"):
@@ -352,9 +352,8 @@ def test_wrappers_check_inputs_and_skip_padding(rng, graphs):
     dst[tg.n_edge:] = 10**6
     torch.testing.assert_close(csr_segment_sum_heads(x, w, src, tg.row_offsets),
                                csr_segment_sum_heads_plain(x, w, tg.senders, tg.row_offsets))
-    torch.testing.assert_close(csr_sddmm_heads(x, x, src, dst, tg.row_offsets, H),
-                               csr_sddmm_heads_plain(x, x, tg.senders, tg.receivers,
-                                                     tg.row_offsets, H))
+    torch.testing.assert_close(csr_sddmm_heads(x, x, src, tg.row_offsets, H),
+                               csr_sddmm_heads_plain(x, x, tg.senders, tg.row_offsets, H))
     torch.testing.assert_close(csr_tile_rows_thin(v[:N], dst, tg.row_offsets),
                                csr_tile_rows_thin_plain(v[:N], tg.receivers, tg.row_offsets))
     v_nan = v.clone()
@@ -365,48 +364,68 @@ def test_wrappers_check_inputs_and_skip_padding(rng, graphs):
     assert [c.launches for c in counters] == before  # the CPU runs no kernel
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K2/K4-K7 kernels have no CPU mode")
-    return torch.device("cuda")
+def _degree_lists(t):
+    """The made-up graphs of ``chip_smoke.py``'s split-edges phase, for chunk
+    size ``t``: one row holding every edge; rows of exactly t, t + 1, 2t and
+    2t + 1 edges among empty rows; the last row long."""
+    return {
+        "one_row": [5 * t + 3],
+        "edges_of_T": [0, t, 0, t + 1, 0, 0, 2 * t, 2 * t + 1, 0, 3, 0],
+        "last_row_long": [2, 0, 7, 3 * t + 5],
+    }
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("heads,d", [(3, 250), (1, 40), (3, 5)])
-def test_attention_kernels_match_plain_on_card(rng, cuda_device, heads, d):
-    # receiver 3 and sender 11 own 750 edges each: hub rows of both orders,
-    # which the row split cuts into chunks for K2, K5 and K6
-    s, r = _edges(rng, e=3000)
-    g = build_graph(s, r, N, edge_pad_multiple=512).to(cuda_device)
-    assert g.row_split.num_long >= 1 and g.t_row_split.num_long >= 1
-    x = torch.randn(N, heads * d, device=cuda_device)
-    gg = torch.randn(N, heads * d, device=cuda_device)
-    w = torch.randn(g.num_edges_padded, heads, device=cuda_device)
-    vals = torch.randn(N, heads, device=cuda_device)
-    for src, dst, ro, split in ((g.senders, g.receivers, g.row_offsets, g.row_split),
-                                (g.t_senders, g.t_receivers, g.t_row_offsets,
-                                 g.t_row_split)):
-        close = dict(rtol=1e-5, atol=1e-4)
-        got = csr_segment_sum_heads(x, w, src, ro, split)
-        torch.testing.assert_close(got, csr_segment_sum_heads_plain(x, w, src, ro), **close)
-        # the same bits at every launch, and with the split derived at the call
-        assert torch.equal(got, csr_segment_sum_heads(x, w, src, ro, split))
-        assert torch.equal(got, csr_segment_sum_heads(x, w, src, ro))
-        torch.testing.assert_close(csr_sddmm_heads(gg, x, src, dst, ro, heads),
-                                   csr_sddmm_heads_plain(gg, x, src, dst, ro, heads), **close)
-        for fn, op in ((csr_segment_sum_thin, "sum"), (csr_segment_max_thin, "max")):
-            got = fn(w, ro, split)
-            want = csr_segment_reduce_thin_plain(w, ro, op)
-            if op == "sum":
-                torch.testing.assert_close(got, want, **close)
-            else:
-                assert torch.equal(got, want)
-            assert torch.equal(got, fn(w, ro, split)) and torch.equal(got, fn(w, ro))
-        want = csr_tile_rows_thin_plain(vals, dst, ro)
-        assert torch.equal(csr_tile_rows_thin(vals, dst, ro), want)
-        # dst as a view that is not 16-byte aligned, E_pad not a multiple of 4
-        shifted = torch.cat([dst[:1], dst])[1:-2]
-        assert shifted.data_ptr() % 16 and shifted.shape[0] % 4
-        assert torch.equal(csr_tile_rows_thin(vals, shifted, ro), want[:-2])
-    torch.cuda.synchronize()
+@pytest.mark.parametrize("heads,d", [(1, 40), (3, 25), (4, 33)])
+@pytest.mark.parametrize("threshold", [1, 3, 16, 128])
+@pytest.mark.parametrize("shape", ["one_row", "edges_of_T", "last_row_long"])
+def test_sddmm_heads_schedule_matches_plain_at_split_edges(rng, shape, threshold, heads, d):
+    # K4's walk executed in plain PyTorch: each short row and each chunk
+    # reads its own row of g; an edge no unit covered would read NaN
+    deg = np.array(_degree_lists(threshold)[shape])
+    e, pad, n_src = int(deg.sum()), 13, 97
+    ro = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32))
+    split = build_row_split(ro, threshold)
+    assert split.num_long == int((deg > threshold).sum()) >= 1
+    src = torch.from_numpy(rng.integers(0, n_src, size=e + pad).astype(np.int32))
+    src[e:] = 10**6  # padding edges are never read
+    g = torch.from_numpy(rng.normal(size=(len(deg), heads * d)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(n_src, heads * d)).astype(np.float32))
+    got = sddmm_by_split(g, x, src, ro, split, heads)
+    want = csr_sddmm_heads_plain(g, x, src, ro, heads)
+    # the same products summed per edge: only the order within a dot differs
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+    assert not got[e:].any()
+    torch.testing.assert_close(csr_sddmm_heads(g, x, src, ro, heads, split), want)
+
+
+@pytest.mark.parametrize("split_at", [2, 16])
+@pytest.mark.parametrize("direction", [0, 1])
+def test_sddmm_heads_schedule_matches_plain_on_graph(rng, graphs, direction, split_at):
+    _, tg = graphs
+    _, src, _, ro, _ = _directions(*graphs)[direction]
+    split = build_row_split(ro, split_at)
+    assert split.num_long >= 1
+    g = torch.from_numpy(rng.normal(size=(N, H * D)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(N, H * D)).astype(np.float32))
+    want = csr_sddmm_heads_plain(g, x, src, ro, H)
+    torch.testing.assert_close(sddmm_by_split(g, x, src, ro, split, H), want,
+                               rtol=1e-6, atol=1e-5)
+    assert not want[tg.n_edge:].any()
+
+
+def test_sddmm_heads_refuses_swapped_or_stale_splits(rng, graphs):
+    _, tg = graphs
+    g, x = torch.randn(N, H * D), torch.randn(N, H * D)
+    sg = _with_splits(tg, 16)  # hub rows of both orders become long rows
+    csr_sddmm_heads(g, x, sg.senders, sg.row_offsets, H, sg.row_split)
+    with pytest.raises(ValueError, match="row split was not built from"):
+        csr_sddmm_heads(g, x, sg.senders, sg.row_offsets, H, sg.t_row_split)
+    with pytest.raises(ValueError, match="row split"):  # another graph's: one row fewer
+        csr_sddmm_heads(g, x, sg.senders, sg.row_offsets, H,
+                        build_row_split(sg.row_offsets[:-1]))
+    ro = tg.row_offsets.clone()
+    split = build_row_split(ro)
+    csr_sddmm_heads(g, x, tg.senders, ro, H, split)
+    ro[1:] = ro[-1]  # every edge moves to row 0: the checked split is stale
+    with pytest.raises(ValueError, match="row split was not built from"):
+        csr_sddmm_heads(g, x, tg.senders, ro, H, split)

@@ -130,6 +130,43 @@ def test_dgl_gat_conv_matches_flax(rng, pallas_interpret, attn_dst, norm):
                  {k: pick(jgrads, names[k]) for k in conv.state_dict()})
 
 
+@pytest.mark.parametrize("attn_dst", [True, False])
+def test_dgl_gat_conv_slope_and_activation_match_flax(rng, pallas_interpret, attn_dst):
+    # the edge-softmax branch with another LeakyReLU slope and an output
+    # activation (the JAX layer's negative_slope= and activation=)
+    jg, tg = _graphs(rng)
+    n, f, h, d = tg.num_nodes, 9, 3, 4
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    cot = rng.normal(size=(n, h, d)).astype(np.float32)
+    jconv = JaxConv(out_feats=d, num_heads=h, use_attn_dst=attn_dst, negative_slope=0.05,
+                    activation=jax.nn.elu)
+    params = jconv.init({"params": jax.random.PRNGKey(4)}, jg, jnp.asarray(x))["params"]
+
+    def jloss(p, x_):
+        out = jconv.apply({"params": p}, jg, x_, training=True)
+        return jnp.sum(out * cot), out
+
+    (_, jout), (jgrads, jdx) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        params, jnp.asarray(x))
+    conv = DGLGATConv(f, d, h, use_attn_dst=attn_dst, negative_slope=0.05,
+                      activation=torch.nn.functional.elu, generator=torch.Generator(),
+                      device="cpu")
+    assert conv.negative_slope == 0.05 and conv.activation is torch.nn.functional.elu
+    names = {"fc_weight": ("Dense_0",), "attn_l": (), "attn_r": ()}
+    conv.load_state_dict({k: torch.tensor(np.asarray(
+        params[names[k][0]]["kernel"] if names[k] else params[k])) for k in conv.state_dict()})
+    conv.train()
+    xt = torch.tensor(x, requires_grad=True)
+    out = conv(tg, xt)
+    (out * torch.from_numpy(cot)).sum().backward()
+    _close(out.detach(), jout)
+    assert -1 < float(out.detach().min()) < 0  # elu's floor, not relu's
+    _close(xt.grad, jdx, rtol=1e-3, atol=1e-4, name="dx")
+    _close_grads({k: p.grad.numpy() for k, p in conv.named_parameters()},
+                 {k: np.asarray(jgrads[names[k][0]]["kernel"] if names[k] else jgrads[k])
+                  for k in conv.state_dict()})
+
+
 def _teachers(rng, jg, f, attn_dst=True):
     jt = JaxTeacher(hidden=4, out_feats=5, num_layers=3, num_heads=3, dropout=0.0,
                     use_attn_dst=attn_dst, use_symmetric_norm=True)
@@ -254,6 +291,35 @@ def test_teacher_trainer_tracks_jax(kw):
     assert got[-1, 0] != got[0, 0]
     _close(tbest["logits"], jbest["logits"], rtol=1e-3, atol=1e-3)
     np.testing.assert_allclose(float(tbest["val_loss"]), float(jbest["val_loss"]), rtol=1e-4)
+
+
+@pytest.mark.parametrize("no_attn_dst", [False, True])
+def test_teacher_train_epoch_and_evaluate_match_jax(no_attn_dst):
+    # the JAX trainer's step-by-step API: train_epoch(epoch) -> {"loss",
+    # "train_acc"}; evaluate() -> (logits, feats, accs, losses)
+    jd, td = jax_synthetic(**DATA), synthetic_node_dataset(**DATA)
+    cfg = dict(n_hidden=6, n_layers=3, n_heads=2, dropout=0.0, input_drop=0.0,
+               attn_drop=0.0, edge_drop=0.0, use_norm=True, lr=0.05, use_labels=True,
+               n_label_iters=1, mask_rate=0.0, no_attn_dst=no_attn_dst)
+    jtr = JaxTrainer(JaxTeacherConfig(**cfg), jd.graph, jd.x, jd.y, jd.split_idx, 4)
+    ttr = GATTeacherTrainer(TeacherConfig(**cfg), td.graph, td.x, td.y, td.split_idx, 4,
+                            device="cpu")
+    ttr.model.load_state_dict(from_jax_params(to_np(jtr.state.params),
+                                              to_np(jtr.state.batch_stats)))
+    for epoch in (1, 2):
+        want, got = jtr.train_epoch(epoch), ttr.train_epoch(epoch)
+        assert set(got) == set(want) == {"loss", "train_acc"}
+        assert all(isinstance(v, float) for v in got.values())
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+        np.testing.assert_allclose(got["train_acc"], want["train_acc"], atol=0.02)
+    jl, jf, jaccs, jlosses = jtr.evaluate()
+    tl, tf, taccs, tlosses = ttr.evaluate()
+    assert tl.shape == jl.shape and tf.shape == jf.shape
+    assert len(taccs) == len(tlosses) == 3 and all(isinstance(v, float) for v in taccs + tlosses)
+    _close(tl, jl, rtol=1e-3, atol=1e-3)
+    _close(tf, jf, rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
+    np.testing.assert_allclose(taccs, jaccs, atol=0.02)
 
 
 def test_dump_outputs_label_modes():

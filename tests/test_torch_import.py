@@ -33,7 +33,8 @@ def test_port_imports_without_jax():
                  "distill.artifacts", "ops.cuda.segment_sddmm", "ops.spmm",
                  "ops.segment", "distill.criteria", "graphs.preprocess",
                  "models.gnns", "models.layers", "models.transplant",
-                 "train.config", "train.node_trainer"):
+                 "train.config", "train.node_trainer", "graphs.hub_dense",
+                 "ops.hub_attention", "ops.dispatch"):
         assert f"efficient_gnns_tpu_torch.{name}" in modules, name
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

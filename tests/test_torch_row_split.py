@@ -1,5 +1,7 @@
 """The port's row split (``graphs/row_split.py``): the chunk schedule that K1,
-K2, K5 and K6 walk to cut power-law hub rows into independent units.
+K2, K5 and K6 walk to cut power-law hub rows into independent units (K3 and
+K4 walk it too; their executed schedule is tested beside their plain
+versions, in ``test_torch_spmm_runtime.py`` and ``test_torch_attention.py``).
 
 On the CPU the kernels do not run, so these tests hold the *schedule*: it
 covers every real edge exactly once and no padding edge, its chunks never
@@ -35,6 +37,8 @@ from efficient_gnns_tpu_torch.graphs import (
 )
 from efficient_gnns_tpu_torch.ops import spmm
 from efficient_gnns_tpu_torch.ops.cuda import (
+    csr_sddmm,
+    csr_sddmm_heads,
     csr_segment_sum,
     csr_segment_max_thin,
     csr_segment_reduce_thin_plain,
@@ -270,10 +274,14 @@ def _call(kernel, x, w, ro, src, split):
         return csr_segment_sum(x, src, ro, None, split)
     if kernel == "K2":
         return csr_segment_sum_heads(x, w, src, ro, split)
+    if kernel == "K3":
+        return csr_sddmm(x, x, src, ro, split)
+    if kernel == "K4":
+        return csr_sddmm_heads(x, x, src, ro, 2, split)
     return (csr_segment_sum_thin if kernel == "K5" else csr_segment_max_thin)(w, ro, split)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K5", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
 def test_wrappers_refuse_a_split_of_another_graph(rng, kernel):
     g = _graph(rng, "high_degree")
     x = torch.randn(N, 16)
@@ -283,7 +291,7 @@ def test_wrappers_refuse_a_split_of_another_graph(rng, kernel):
         _call(kernel, x, w, g.row_offsets, g.senders, other)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2", "K5", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6"])
 def test_wrappers_refuse_the_other_edge_orders_split(rng, kernel):
     # both orders have the same rows and edges: only the schedule's content
     # tells them apart (receiver 0 is a long row of the forward order alone)

@@ -163,34 +163,3 @@ def test_segment_sum_wrapper_checks_inputs(rng):
     poisoned[tg.n_edge:] = 10**6  # out of range: must never be read
     torch.testing.assert_close(
         csr_segment_sum(x, poisoned, tg.row_offsets, tg.edge_weight), got)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("f", [40, 256, 3])
-def test_k1_kernel_matches_plain_on_card(rng, cuda_device, f, dtype):
-    # receiver 0 owns 400 edges: a hub row that the row split cuts into chunks
-    _, tg, n = _graphs(rng, "high_degree", "gcn")
-    g = tg.to(cuda_device)
-    assert g.row_split.num_long >= 1 and g.row_split.num_chunks >= 4
-    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda_device, dtype)
-    launches = csr_segment_sum.launches
-    for src, ro, w, split in ((g.senders, g.row_offsets, g.edge_weight, g.row_split),
-                              (g.t_senders, g.t_row_offsets, g.t_edge_weight, g.t_row_split),
-                              (g.senders, g.row_offsets, None, g.row_split)):
-        got = csr_segment_sum(x, src, ro, w, split)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, csr_segment_sum_plain(x, src, ro, w),
-                                   rtol=1e-5, atol=1e-5)
-        # one owner per output and a fixed order: the same bits at every
-        # launch, and with the split derived from row_offsets at the call
-        assert torch.equal(got, csr_segment_sum(x, src, ro, w, split))
-        assert torch.equal(got, csr_segment_sum(x, src, ro, w))
-    assert csr_segment_sum.launches == launches + 9

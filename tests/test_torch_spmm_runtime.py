@@ -28,7 +28,7 @@ from efficient_gnns_tpu.ops import dispatch as jax_dispatch
 from efficient_gnns_tpu.ops import segment as jax_segment
 from efficient_gnns_tpu.ops.pallas import blocked_sddmm_dw
 from efficient_gnns_tpu_torch import ops
-from efficient_gnns_tpu_torch.graphs import build_graph
+from efficient_gnns_tpu_torch.graphs import build_graph, build_row_split, sddmm_by_split
 from efficient_gnns_tpu_torch.ops import dispatch, spmm, spmm_mean
 from efficient_gnns_tpu_torch.ops.cuda import csr_sddmm, csr_sddmm_plain
 
@@ -87,8 +87,8 @@ def test_sddmm_plain_matches_pallas_k3(rng, case, f):
         jnp.asarray(gp), jnp.asarray(xp)[np.asarray(blk.src)], blk, interpret=True))
     want = np.zeros(tg.num_edges_padded, np.float32)
     want[: tg.n_edge] = dw_blk[np.asarray(blk.inv_perm)[: tg.n_edge]]
-    got = csr_sddmm(torch.from_numpy(g), torch.from_numpy(x), tg.senders, tg.receivers,
-                    tg.row_offsets)
+    got = csr_sddmm(torch.from_numpy(g), torch.from_numpy(x), tg.senders, tg.row_offsets,
+                    tg.row_split)
     assert got.dtype == torch.float32 and got.shape == (tg.num_edges_padded,)
     _close(got, want, rtol=1e-4, atol=1e-4)
     assert (got[tg.n_edge:] == 0).all()
@@ -242,9 +242,9 @@ def test_segment_reductions_match_jax(rng, name):
 def test_sddmm_wrapper_checks_inputs(rng):
     _, tg = _graphs(rng, "random")
     g, x = torch.randn(N, 16), torch.randn(N, 16)
-    args = (tg.senders, tg.receivers, tg.row_offsets)
+    args = (tg.senders, tg.row_offsets)
     with pytest.raises(ValueError, match="int32"):
-        csr_sddmm(g, x, tg.senders.long(), tg.receivers, tg.row_offsets)
+        csr_sddmm(g, x, tg.senders.long(), tg.row_offsets)
     with pytest.raises(ValueError, match="contiguous"):
         csr_sddmm(torch.randn(16, N).t(), x, *args)
     with pytest.raises(ValueError, match="float32"):
@@ -260,30 +260,69 @@ def test_sddmm_wrapper_checks_inputs(rng):
     got = csr_sddmm(g, x, *args)
     assert csr_sddmm.launches == launches
     torch.testing.assert_close(got, csr_sddmm_plain(g, x, *args))
-    src, dst = tg.senders.clone(), tg.receivers.clone()
+    src = tg.senders.clone()
     src[tg.n_edge:] = 10**6
-    dst[tg.n_edge:] = 10**6
-    torch.testing.assert_close(csr_sddmm(g, x, src, dst, tg.row_offsets), got)
+    torch.testing.assert_close(csr_sddmm(g, x, src, tg.row_offsets, tg.row_split), got)
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the K3 kernel has no CPU mode")
-    return torch.device("cuda")
+def _degree_lists(t):
+    """The made-up graphs of ``chip_smoke.py``'s split-edges phase, for chunk
+    size ``t``: one row holding every edge; rows of exactly t, t + 1, 2t and
+    2t + 1 edges among empty rows; the last row long."""
+    return {
+        "one_row": [5 * t + 3],
+        "edges_of_T": [0, t, 0, t + 1, 0, 0, 2 * t, 2 * t + 1, 0, 3, 0],
+        "last_row_long": [2, 0, 7, 3 * t + 5],
+    }
 
 
-@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("f", [40, 256, 3])
-def test_k3_kernel_matches_plain_on_card(rng, cuda_device, f, dtype):
+@pytest.mark.parametrize("threshold", [1, 3, 16, 128])
+@pytest.mark.parametrize("shape", ["one_row", "edges_of_T", "last_row_long"])
+def test_sddmm_schedule_matches_plain_at_split_edges(rng, shape, threshold, dtype):
+    # K3's walk executed in plain PyTorch: each short row and each chunk
+    # reads its own row of g; an edge no unit covered would read NaN
+    deg = np.array(_degree_lists(threshold)[shape])
+    e, pad, n_src, f = int(deg.sum()), 13, 97, 40
+    ro = torch.from_numpy(np.concatenate([[0], np.cumsum(deg)]).astype(np.int32))
+    split = build_row_split(ro, threshold)
+    assert split.num_long == int((deg > threshold).sum()) >= 1
+    src = torch.from_numpy(rng.integers(0, n_src, size=e + pad).astype(np.int32))
+    src[e:] = 10**6  # padding edges are never read
+    g = torch.from_numpy(rng.normal(size=(len(deg), f)).astype(np.float32)).to(dtype)
+    x = torch.from_numpy(rng.normal(size=(n_src, f)).astype(np.float32)).to(dtype)
+    got = sddmm_by_split(g, x, src, ro, split)[:, 0]
+    want = csr_sddmm_plain(g, x, src, ro)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+    assert not got[e:].any()
+    torch.testing.assert_close(csr_sddmm(g, x, src, ro, split), want)
+
+
+@pytest.mark.parametrize("threshold", [2, 32])
+@pytest.mark.parametrize("case", CASES)
+def test_sddmm_schedule_matches_plain_on_graphs(rng, case, threshold):
+    _, tg = _graphs(rng, case)
+    g = torch.from_numpy(rng.normal(size=(N, 24)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(N, 24)).astype(np.float32))
+    for src, ro in ((tg.senders, tg.row_offsets), (tg.t_senders, tg.t_row_offsets)):
+        want = csr_sddmm_plain(g, x, src, ro)
+        got = sddmm_by_split(g, x, src, ro, build_row_split(ro, threshold))[:, 0]
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+def test_sddmm_refuses_swapped_or_stale_splits(rng):
+    # receiver 0 is a long row of the forward order alone
     _, tg = _graphs(rng, "high_degree")
-    graph = tg.to(cuda_device)
-    g = torch.from_numpy(rng.normal(size=(N, f)).astype(np.float32)).to(cuda_device, dtype)
-    x = torch.from_numpy(rng.normal(size=(N, f)).astype(np.float32)).to(cuda_device, dtype)
-    launches = csr_sddmm.launches
-    args = (graph.senders, graph.receivers, graph.row_offsets)
-    got = csr_sddmm(g, x, *args)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, csr_sddmm_plain(g, x, *args), rtol=1e-5, atol=1e-5)
-    assert csr_sddmm.launches == launches + 1
+    assert tg.row_split.num_long == 1 and tg.t_row_split.num_long == 0
+    g, x = torch.randn(N, 8), torch.randn(N, 8)
+    csr_sddmm(g, x, tg.senders, tg.row_offsets, tg.row_split)
+    with pytest.raises(ValueError, match="row split was not built from"):
+        csr_sddmm(g, x, tg.senders, tg.row_offsets, tg.t_row_split)
+    with pytest.raises(ValueError, match="row split was not built from"):
+        csr_sddmm(g, x, tg.t_senders, tg.t_row_offsets, tg.row_split)
+    ro = tg.row_offsets.clone()
+    split = build_row_split(ro)
+    csr_sddmm(g, x, tg.senders, ro, split)
+    ro[1:] = ro[-1]  # every edge moves to row 0: the checked split is stale
+    with pytest.raises(ValueError, match="row split was not built from"):
+        csr_sddmm(g, x, tg.senders, ro, split)

@@ -82,6 +82,41 @@ def test_trainer_tracks_jax(mode, kw):
                                        rtol=1e-5, atol=1e-5, err_msg=name)
 
 
+@pytest.mark.parametrize("mode", ["supervised", "kd"])
+def test_train_epoch_and_evaluate_match_jax(mode):
+    # the JAX trainer's step-by-step API: train_epoch(epoch) -> {"loss",
+    # "loss_cls", "loss_aux"}; evaluate() -> (logits, (acc_train, acc_valid,
+    # acc_test))
+    jd, td = jax_synthetic(**DATA), synthetic_node_dataset(**DATA)
+    tl = cli.oracle_teacher_logits(td.y, td.num_classes)
+    cfg = dict(training=mode, hidden=32, num_layers=2, dropout=0.0, lr=0.01)
+    jtr = JaxTrainer(
+        JaxGCN(hidden=32, out_feats=5, num_layers=2, dropout=0.0), JaxConfig(**cfg),
+        jd.graph, jd.x, jd.y, jd.split_idx,
+        teacher_logits=jnp.asarray(tl) if mode == "kd" else None, seed=0,
+    )
+    model = GCN(16, 32, 5, 2, dropout=0.0, device="cpu")
+    model.load_state_dict(_jax_state(jtr))
+    ttr = NodeDistillTrainer(
+        model, DistillConfig(**cfg), td.graph, td.x, td.y, td.split_idx,
+        teacher_logits=tl if mode == "kd" else None, seed=0, device="cpu",
+    )
+    for epoch in (1, 2, 3):
+        want, got = jtr.train_epoch(epoch), ttr.train_epoch(epoch)
+        assert set(got) == set(want) == {"loss", "loss_cls", "loss_aux"}
+        assert all(isinstance(v, float) for v in got.values())
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-7, err_msg=k)
+    jlogits, jaccs = jtr.evaluate()
+    tlogits, taccs = ttr.evaluate()
+    assert len(taccs) == 3 and all(isinstance(a, float) for a in taccs)
+    # the evaluation reads the running mean behind the first conv's bias,
+    # which Adam moves by each side's rounding noise (module docstring)
+    assert tlogits.shape == tuple(np.asarray(jlogits).shape)
+    np.testing.assert_allclose(tlogits.detach().numpy(), np.asarray(jlogits), atol=0.1)
+    np.testing.assert_allclose(taccs, jaccs, atol=0.05)
+
+
 # max_samples exceeds the 270 train rows, so neither side subsamples (the two
 # draw their rows from different generators: ROADMAP.md Queue 3)
 AUX_MODES = [
