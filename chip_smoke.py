@@ -48,11 +48,11 @@ it imports nothing of JAX. Phases, each of which must pass:
    ``cli.arxiv`` trains the GCN student from the flagship dump in ``kd``,
    ``nce`` (MLP projection heads, 8192 sampled rows) and ``gcd``
    (graph-conditioned heads) mode;
-9. a profile of one epoch of each teacher and of a chunk of GCN
-   ``supervised`` student epochs at arxiv shape (``torch.profiler``): device
-   busy and idle share, the device time by kernel, the host calls that wait
-   for the device, the tables written to ``OUT_DIR``; and the steady epoch
-   time of the three trainers without the profiler;
+9. a profile of one epoch of each teacher, of a chunk of GCN ``supervised``
+   student epochs and of one SIGN epoch at arxiv shape (``torch.profiler``):
+   device busy and idle share, the device time by kernel, the host calls
+   that wait for the device, the tables written to ``OUT_DIR``; and the
+   steady epoch time of the four trainers without the profiler;
 10. K3 (``csr_sddmm``, the weight gradient of ``spmm`` with per-call
     weights) against its plain version at the arxiv shape, F = 256 and 40,
     float32 and bfloat16, with its time, the plain version's, one library
@@ -75,7 +75,24 @@ it imports nothing of JAX. Phases, each of which must pass:
     (times only: what ``ROW_SPLIT_THRESHOLD`` was chosen from);
 14. K5 and K6 rebuilt with other lane-group widths and loads in flight
     (times only: what the constants of ``csrc/segment_thin.cu`` were chosen
-    from).
+    from);
+15. small-input reference: the SIGN trainer on the card against the same
+    trainer on the CPU (``supervised``, and ``nce`` composed with logit KD),
+    and the card's hop features against the CPU's;
+16. the SIGN slice: ``efficient_gnns_tpu_torch.cli.sign`` at arxiv shape and
+    the reference's full width (R = 5 hops, 6 FFNs 128 -> 512 -> 512, batches
+    of 50,000) in ``kd`` from the flagship teacher's dump, then ``nce`` with
+    ``--kd_and_aux`` at the ``sign-aux/nce`` grid point, every kernel's
+    counter read around each run (K1 once a hop, nothing else);
+17. checkpoints: ``cli.arxiv`` trains the GCN student at arxiv shape 6
+    epochs unbroken, and 3 epochs with ``--checkpoint_every 3`` then
+    ``--resume`` to 6; epochs 4-6 must give the same losses; then
+    ``cli.gat_teacher --save-pred`` at a small size, whose best-validation
+    checkpoint must reproduce its dump's logits in a fresh teacher;
+18. the OGB raw cache: the arxiv-shaped dataset written as an ogbn-arxiv
+    ``csv.gz`` cache, read back by ``data/ogb.py`` (the graph equal to the
+    one built from the same edges), and the GCN student trained 3 epochs on
+    it through ``cli.arxiv --dataset ogbn-arxiv``.
 
 ``--only a,b`` runs the named phases alone (see ``main``). The last lines
 are the kernels' JSON record, the ``nvidia-smi`` line and
@@ -132,9 +149,28 @@ TEACHER_LAUNCHES = {"K1": 12 + 3, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "
 TEACHER_ATTN_DST_LAUNCHES = {"K1": 0, "K2": 12 + 3, "K3": 0, "K4": 3, "K5": 12 + 3 * 3,
                              "K6": 12, "K7": 12 * 3 + 3}
 HEADS = ((3, 250), (1, 40))  # the teacher's hidden layers and its last layer
+# experiments/all_workloads.sh:11-13 (the hard task) at the reference's full
+# SIGN width (arxiv_dgl/sign.py defaults), cut in time only: 10 epochs, 1 run
+SIGN = ["--num_nodes", "169343", "--num_edges", "1166243", "--signal", "0.3",
+        "--label_noise", "0.15", "--R", "5", "--num_hidden", "512", "--ff_layer", "2",
+        "--batch_size", "50000", "--eval_batch_size", "100000", "--num_runs", "1",
+        "--num_epochs", "10", "--eval_every", "10"]
+SIGN_AUX_NCE = ["--kd_and_aux", "--beta", "0.1", "--nce_T", "0.075", "--max_samples",
+                "16384", "--proj_dim", "256"]  # experiments/sign.json, sign-aux/nce
+SIGN_HOPS = 5
 DEVICE = "cuda"
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out", "chip_smoke")
+TEACHER_DUMP = os.path.join(OUT_DIR, "teacher_dumps", "chip_smoke_teacher")
+
+
+def _counters():
+    """Every kernel's wrapper by its number: each counts its own launches."""
+    from efficient_gnns_tpu_torch.ops import cuda as K
+
+    return {"K1": K.csr_segment_sum, "K2": K.csr_segment_sum_heads, "K3": K.csr_sddmm,
+            "K4": K.csr_sddmm_heads, "K5": K.csr_segment_sum_thin,
+            "K6": K.csr_segment_max_thin, "K7": K.csr_tile_rows_thin}
 
 
 def _time_ms(fn, reps=None, budget_ms=1500.0):
@@ -1037,7 +1073,6 @@ def phase_hub_attention():
     import torch
 
     from efficient_gnns_tpu_torch.data import synthetic_node_dataset
-    from efficient_gnns_tpu_torch.ops import cuda as K
     from efficient_gnns_tpu_torch.ops import dispatch
     from efficient_gnns_tpu_torch.ops import hub_attention as hub
 
@@ -1055,10 +1090,7 @@ def phase_hub_attention():
             for dev in ("cpu", DEVICE)}
     if not torch.equal(keep["cpu"], keep[DEVICE].cpu()):
         failures.append("hub attention: the keep set differs between the devices")
-    counters = {k: getattr(K, name) for k, name in (
-        ("K1", "csr_segment_sum"), ("K2", "csr_segment_sum_heads"), ("K3", "csr_sddmm"),
-        ("K4", "csr_sddmm_heads"), ("K5", "csr_segment_sum_thin"),
-        ("K6", "csr_segment_max_thin"), ("K7", "csr_tile_rows_thin"))}
+    counters = _counters()
     for h, d in HEADS:
         feat = torch.randn(n, h, d, generator=gen)
         el = torch.randn(n, h, generator=gen) * 2
@@ -1114,11 +1146,8 @@ def _teacher_run(argv, expected):
     import math
 
     from efficient_gnns_tpu_torch.cli import gat_teacher
-    from efficient_gnns_tpu_torch.ops import cuda as K
 
-    counters = {"K1": K.csr_segment_sum, "K2": K.csr_segment_sum_heads, "K3": K.csr_sddmm,
-                "K4": K.csr_sddmm_heads, "K5": K.csr_segment_sum_thin,
-                "K6": K.csr_segment_max_thin, "K7": K.csr_tile_rows_thin}
+    counters = _counters()
     for c in counters.values():
         c.launches = 0
     summary = gat_teacher.main(argv + [
@@ -1143,8 +1172,8 @@ def phase_teacher_slice():
     ``experiments/arxiv_hard.sh`` step 1 (``--no-attn-dst``: the hub attention
     path, K1 alone) and again with attn-dst on (K2, K4-K7), every kernel
     counted; then the student from the flagship teacher's dump in ``kd``,
-    ``nce`` and ``gcd`` mode (K1 counted). Returns (launches by kernel, summed
-    over the runs, and failures)."""
+    ``nce`` and ``gcd`` mode (K1 counted). The dump stays for the SIGN slice.
+    Returns (launches by kernel, summed over the runs, and failures)."""
     import numpy as np
 
     from efficient_gnns_tpu_torch.distill import load_teacher_dump
@@ -1153,22 +1182,18 @@ def phase_teacher_slice():
     more, fails = _teacher_run(TEACHER_ATTN_DST, TEACHER_ATTN_DST_LAUNCHES)
     launches = {k: v + more[k] for k, v in launches.items()}
     failures += fails
-    dump_dir = os.path.join(OUT_DIR, "teacher_dumps", "chip_smoke_teacher")
-    try:
-        feats, logits = load_teacher_dump(dump_dir, 0)
-        print(f"teacher dump: features {feats.shape} logits {logits.shape}", flush=True)
-        if (feats.shape != (169343, 750) or logits.shape != (169343, 40)
-                or not (np.isfinite(feats).all() and np.isfinite(logits).all())):
-            failures.append("teacher dump not finite [N, 750] / [N, 40]")
-        del feats, logits
-        for training, extra in (("kd", ["--alpha", "0.9", "--kd_T", "4"]),
-                                ("nce", NCE), ("gcd", NCE)):
-            n, fails = _student("chip_smoke_dump", "gcn", training,
-                                HARD_U + extra + ["--teacher_dir", dump_dir])
-            launches["K1"] += n
-            failures += fails
-    finally:  # the dump is 0.5 GB: too large to keep among the run's outputs
-        shutil.rmtree(os.path.dirname(dump_dir))
+    feats, logits = load_teacher_dump(TEACHER_DUMP, 0)
+    print(f"teacher dump: features {feats.shape} logits {logits.shape}", flush=True)
+    if (feats.shape != (169343, 750) or logits.shape != (169343, 40)
+            or not (np.isfinite(feats).all() and np.isfinite(logits).all())):
+        failures.append("teacher dump not finite [N, 750] / [N, 40]")
+    del feats, logits
+    for training, extra in (("kd", ["--alpha", "0.9", "--kd_T", "4"]),
+                            ("nce", NCE), ("gcd", NCE)):
+        n, fails = _student("chip_smoke_dump", "gcn", training,
+                            HARD_U + extra + ["--teacher_dir", TEACHER_DUMP])
+        launches["K1"] += n
+        failures += fails
     return launches, failures
 
 
@@ -1269,9 +1294,322 @@ def phase_student_profile(ds):
           f"clock): {ms:.2f} ms", flush=True)
 
 
+
+def phase_sign_reference():
+    """The SIGN trainer on the card against the same trainer on the CPU, same
+    start, dropout 0, 3 epochs of batches of 512 over 1,620 train rows (the
+    last batch padded): ``supervised``, and ``nce`` composed with logit KD
+    with ``max_samples`` at the batch rows (no row subset, whose draws differ
+    between the devices' generators). The hop features (R = 3) on the card
+    against the CPU's first, each entry within 1e-5 of its sum of |terms|
+    (the same hops over ``|x|``: the weights are positive), so that a late
+    hop's small entries are held as tightly as the first's."""
+    import numpy as np
+    import torch
+
+    from efficient_gnns_tpu_torch.cli.arxiv import oracle_teacher_logits
+    from efficient_gnns_tpu_torch.cli.sign import oracle_teacher_prototypes
+    from efficient_gnns_tpu_torch.data import synthetic_node_dataset
+    from efficient_gnns_tpu_torch.sampling import neighbor_average_features
+    from efficient_gnns_tpu_torch.train import DistillConfig, SIGNTrainer
+
+    ds = synthetic_node_dataset(num_nodes=3000, num_edges=15000, seed=5)
+    x = torch.from_numpy(ds.x)
+    feats = neighbor_average_features(ds.graph, x, 3)
+    card = neighbor_average_features(ds.graph.to(DEVICE), x.to(DEVICE), 3)
+    terms = neighbor_average_features(ds.graph, x.abs(), 3)
+    hop_err = max(float((c.cpu() - f).abs().max()) for c, f in zip(card, feats))
+    # the largest error of each hop over its limit; 1 or less passes
+    hop_ratio = max(float(((c.cpu() - f).abs() / (1e-5 * t).clamp_min(1e-30)).max())
+                    for c, f, t in zip(card, feats, terms))
+    failures = []
+    if not hop_ratio <= 1:  # NaN fails too
+        failures.append("SIGN hop features on the card disagree with the CPU")
+    teacher = dict(teacher_feat=oracle_teacher_prototypes(ds.y, ds.num_classes),
+                   teacher_logits=oracle_teacher_logits(ds.y, ds.num_classes))
+    for tag, cfg in (("supervised", {}),
+                     ("nce+kd", dict(training="nce", kd_and_aux=True, beta=0.1,
+                                     max_samples=512, proj_dim=32))):
+        hist = {}
+        for device in ("cpu", DEVICE):
+            trainer = SIGNTrainer(DistillConfig(hidden=64, dropout=0.0, lr=0.001, **cfg),
+                                  feats, ds.y, ds.split_idx, ds.num_classes, batch_size=512,
+                                  eval_batch_size=1024, device=device, **teacher)
+            hist[device] = np.array([trainer.train_epoch(e)["loss"] for e in (1, 2, 3)])
+        got, want = hist[DEVICE], hist["cpu"]
+        print(f"sign reference {tag}: cuda vs cpu trainer, 3 epochs, losses {got.tolist()} "
+              f"max_abs_err={float(np.abs(got - want).max()):.3e}; hop features "
+              f"max_abs_err={hop_err:.3e}, worst error / (1e-5 sum|terms|) "
+              f"{hop_ratio:.3e}", flush=True)
+        if not (np.isfinite(got).all() and np.allclose(got, want, rtol=1e-4, atol=1e-6)):
+            failures.append(f"sign reference {tag}: the card's losses disagree with the CPU")
+    return failures
+
+
+def _sign_run(expt, training, extra):
+    """One run of the SIGN CLI at arxiv shape with every kernel's counter read
+    around it; returns (K1 launches, failures)."""
+    import math
+
+    from efficient_gnns_tpu_torch.cli import sign
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    summary = sign.main(SIGN + ["--training", training, *extra, "--device", DEVICE,
+                                "--out_dir", OUT_DIR, "--expt_name", expt])
+    launches = {k: c.launches for k, c in counters.items()}
+    run = summary["runs"][0]
+    epochs = len(run["losses"])
+    print(f"sign slice {expt} {training}: launches {launches} (expected K1 {SIGN_HOPS}, "
+          f"no other) hop precompute {summary['precompute_seconds'] * 1e3:.2f} ms "
+          f"mean epoch (train batches, one evaluation in {epochs}) "
+          f"{run['seconds'] / epochs * 1e3:.1f} ms final test {run['final_test']:.4f} "
+          f"losses {[round(v, 4) for v in run['losses']]}", flush=True)
+    failures = []
+    if launches != {**{k: 0 for k in counters}, "K1": SIGN_HOPS}:
+        failures.append(f"sign {training}: launches {launches}")
+    losses = run["losses"]
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        failures.append(f"sign {training}: losses not finite and falling")
+    return launches["K1"], failures
+
+
+def phase_sign_slice(ds):
+    """The hop precompute's steady device time on the arxiv-shaped graph (the
+    SIGN CLI's: the edges are drawn first, whatever the signal), beside one
+    K1 launch at F=128 and its bound; then the SIGN CLI at arxiv shape and
+    full width: ``kd`` from the flagship teacher's dump (the oracle teacher
+    when that phase did not run), then ``nce`` with ``--kd_and_aux`` at the
+    ``sign-aux/nce`` grid point. Returns (K1 launches, failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
+    from efficient_gnns_tpu_torch.sampling import neighbor_average_features
+
+    g = ds.graph.to(DEVICE)
+    x = torch.from_numpy(ds.x).to(DEVICE)
+    neighbor_average_features(g, x, SIGN_HOPS)  # the one-time split check
+    hops_ms = _time_ms(lambda: neighbor_average_features(g, x, SIGN_HOPS), 10)
+    k1_ms = _time_ms(lambda: csr_segment_sum(x, g.senders, g.row_offsets, g.edge_weight,
+                                             g.row_split), 20)
+    n, e, f = g.num_nodes, g.n_edge, x.shape[1]
+    # a hop: K1 (x read, out written, indices and weights) + the division
+    # (out read, written)
+    bound_ms = SIGN_HOPS * (4 * n * f * 4 + e * 8 + (n + 1) * 4) / HBM_BYTES_PER_S * 1e3
+    print(f"sign hop precompute (R={SIGN_HOPS}, F={f}, steady, CUDA events): {hops_ms:.4f} ms; "
+          f"one K1 launch {k1_ms:.4f} ms; bound {bound_ms:.4f} ms (bytes)", flush=True)
+    del g, x
+    teacher = (["--teacher_dir", TEACHER_DUMP]
+               if os.path.exists(os.path.join(TEACHER_DUMP, "teacher_seed0.npz")) else [])
+    print(f"sign slice teacher: {'the flagship dump' if teacher else 'the oracle'}", flush=True)
+    launches, failures = 0, []
+    for training, extra in (("kd", []), ("nce", SIGN_AUX_NCE)):
+        n, fails = _sign_run("chip_smoke_sign", training, extra + teacher)
+        launches, failures = launches + n, failures + fails
+    return launches, failures
+
+
+def _metrics(expt):
+    with open(os.path.join(OUT_DIR, expt, "gcn-supervised", "seed0", "metrics.jsonl")) as f:
+        return {r["step"]: r["loss/train"] for r in map(json.loads, f)}
+
+
+def phase_checkpoint(ds):
+    """``cli.arxiv`` trains the GCN student at arxiv shape 6 epochs unbroken,
+    and 3 epochs with ``--checkpoint_every 3`` then ``--resume`` to 6 (K1
+    counted: 6 an epoch); epochs 4-6 must give the same losses. The save and
+    restore of a trainer's checkpoint timed on the host clock. Then the
+    teacher CLI's ``--save-pred`` at a small size: its best-validation
+    checkpoint loaded into a fresh teacher must give its dump's logits.
+    Returns (K1 launches, failures)."""
+    import numpy as np
+    import torch
+
+    from efficient_gnns_tpu_torch.cli import arxiv, gat_teacher
+    from efficient_gnns_tpu_torch.data import synthetic_node_dataset
+    from efficient_gnns_tpu_torch.distill import load_teacher_dump
+    from efficient_gnns_tpu_torch.models import GCN
+    from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
+    from efficient_gnns_tpu_torch.train import (
+        DistillConfig,
+        GATTeacherTrainer,
+        NodeDistillTrainer,
+        TeacherConfig,
+    )
+    from efficient_gnns_tpu_torch.train.checkpoint import load_checkpoint
+
+    base = ARXIV + ["--gnn", "gcn", "--training", "supervised", "--runs", "1", "--log_steps",
+                    "3", "--epoch_chunk", "3", "--device", DEVICE, "--out_dir", OUT_DIR]
+    csr_segment_sum.launches = 0
+    for argv in (["--expt_name", "chip_smoke_ck_a", "--epochs", "6"],
+                 ["--expt_name", "chip_smoke_ck_b", "--epochs", "3", "--checkpoint_every", "3"],
+                 ["--expt_name", "chip_smoke_ck_b", "--epochs", "6", "--checkpoint_every", "3",
+                  "--resume"]):
+        arxiv.main(base + argv)
+    launches = csr_segment_sum.launches
+    unbroken, resumed = _metrics("chip_smoke_ck_a"), _metrics("chip_smoke_ck_b")
+    got = np.array([resumed[e] for e in (4, 5, 6)])
+    want = np.array([unbroken[e] for e in (4, 5, 6)])
+    err = float(np.abs(got - want).max())
+    print(f"checkpoint: GCN supervised epochs 4-6 unbroken {want.tolist()} resumed "
+          f"{got.tolist()} max_abs_diff={err:.3e} bitwise {'equal' if err == 0 else 'DIFFER'}; "
+          f"K1 launches {launches} (expected {6 * 12})", flush=True)
+    failures = []
+    if not np.allclose(got, want, rtol=1e-5, atol=0) or sorted(resumed) != list(range(1, 7)):
+        failures.append("checkpoint: the resumed run's losses differ from the unbroken run's")
+    if launches != 6 * 12:
+        failures.append(f"checkpoint: {launches} K1 launches")
+
+    model = GCN(ds.x.shape[1], 256, ds.num_classes, 2, seed=0, device=DEVICE)
+    trainer = NodeDistillTrainer(model, DistillConfig(hidden=256), ds.graph, ds.x, ds.y,
+                                 ds.split_idx, device=DEVICE)
+    trainer.run_epochs(1, 1)
+    path = os.path.join(OUT_DIR, "chip_smoke_ck_timing", "checkpoint.pt")
+    t0 = time.perf_counter()
+    trainer.save_checkpoint(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.restore_checkpoint(path)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    print(f"checkpoint of the 2 x 256 GCN student: {os.path.getsize(path)} bytes, save "
+          f"{save_ms:.2f} ms, restore {load_ms:.2f} ms (host clock)", flush=True)
+    shutil.rmtree(os.path.dirname(path))
+
+    dump_dir, ckpt_dir = (os.path.join(OUT_DIR, d, "chip_smoke_ck_teacher")
+                          for d in ("teacher_dumps", "checkpoints"))
+    try:
+        gat_teacher.main(["--num-nodes", "3000", "--num-edges", "15000", "--n-hidden", "32",
+                          "--n-epochs", "3", "--n-runs", "1", "--seed", "2", "--use-labels",
+                          "--n-label-iters", "1", "--save-pred", "--expt-name",
+                          "chip_smoke_ck_teacher", "--out-dir", OUT_DIR, "--device", DEVICE])
+        state = load_checkpoint(os.path.join(ckpt_dir, "2.pt"), map_location=DEVICE)
+        _, logits = load_teacher_dump(dump_dir, 2)
+        small = synthetic_node_dataset(num_nodes=3000, num_edges=15000, seed=42,
+                                       hub_dense="auto", gcn_norm=False)
+        fresh = GATTeacherTrainer(
+            TeacherConfig(n_hidden=32, use_labels=True, n_label_iters=1, no_attn_dst=False,
+                          use_norm=False),
+            small.graph, small.x, small.y, small.split_idx, small.num_classes, seed=9,
+            device=DEVICE)
+        fresh.model.load_state_dict(state)
+        again = fresh.evaluate()[0].cpu().numpy()
+        err = float(np.abs(again - logits).max())
+        print(f"teacher checkpoint: a fresh teacher from 2.pt gives the dump's logits "
+              f"{logits.shape}, max_abs_err={err:.3e}", flush=True)
+        if not np.allclose(again, logits, rtol=1e-5, atol=1e-5):
+            failures.append("teacher checkpoint does not reproduce its dump")
+    finally:  # nothing of the small teacher is kept among the run's outputs
+        for d in (dump_dir, ckpt_dir):
+            shutil.rmtree(d, ignore_errors=True)
+    return launches, failures
+
+
+def _write_csv_gz(path, arr, fmt):
+    import gzip
+
+    import numpy as np
+
+    with gzip.open(path, "wt", compresslevel=1) as f:
+        np.savetxt(f, arr, fmt=fmt, delimiter=",")
+
+
+def phase_ogbn_cache(ds):
+    """The arxiv-shaped dataset written as an ogbn-arxiv raw cache (gzip level
+    1) and read back by ``data/ogb.py``: the graph must equal the one built
+    from the same edges, the features the written ones; then the GCN student
+    trains 3 epochs on it through ``cli.arxiv --dataset ogbn-arxiv`` (K1
+    counted: 6 an epoch). Returns (K1 launches, failures)."""
+    import numpy as np
+    import torch
+
+    from efficient_gnns_tpu_torch.cli import arxiv
+    from efficient_gnns_tpu_torch.data import load_ogbn_arxiv
+    from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
+
+    root = os.path.join(OUT_DIR, "ogbn_cache")
+    raw = os.path.join(root, "ogbn_arxiv", "raw")
+    split = os.path.join(root, "ogbn_arxiv", "split", "time")
+    os.makedirs(raw, exist_ok=True)
+    os.makedirs(split, exist_ok=True)
+    failures = []
+    try:
+        t0 = time.perf_counter()
+        _write_csv_gz(os.path.join(raw, "edge.csv.gz"),
+                      np.stack([ds.senders, ds.receivers], 1), "%d")
+        _write_csv_gz(os.path.join(raw, "node-feat.csv.gz"), ds.x, "%.6f")
+        _write_csv_gz(os.path.join(raw, "node-label.csv.gz"), ds.y[:, None], "%d")
+        for k, v in ds.split_idx.items():
+            _write_csv_gz(os.path.join(split, f"{k}.csv.gz"), v[:, None], "%d")
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(root) for f in fs)
+        t0 = time.perf_counter()
+        got = load_ogbn_arxiv(root=root)
+        load_s = time.perf_counter() - t0
+        print(f"ogbn cache: {len(ds.senders)} edges, x {ds.x.shape}, {size} bytes; write "
+              f"{write_s:.1f} s (gzip level 1), load {load_s:.1f} s (gzip + np.loadtxt, "
+              f"graph build included)", flush=True)
+        same = [name for name in ("senders", "receivers", "t_senders", "t_receivers",
+                                  "csc_perm", "row_offsets", "t_row_offsets", "edge_weight")
+                if torch.equal(getattr(got.graph, name), getattr(ds.graph, name))]
+        if len(same) != 8 or got.graph.n_edge != ds.graph.n_edge:
+            failures.append(f"ogbn cache: graph differs from build_graph's (equal: {same})")
+        x_err = float(np.abs(got.x - ds.x).max())
+        if x_err > 1e-6 or not np.array_equal(got.y, ds.y) or any(
+                not np.array_equal(got.split_idx[k], v) for k, v in ds.split_idx.items()):
+            failures.append(f"ogbn cache: x (max err {x_err:.2e}), y or splits differ")
+        print(f"ogbn cache: graph arrays equal to build_graph's: {len(same)}/8; x within "
+              f"{x_err:.2e} of the written values", flush=True)
+        del got
+        csr_segment_sum.launches = 0
+        summary = arxiv.main(["--dataset", "ogbn-arxiv", "--data_root", root, "--gnn", "gcn",
+                              "--training", "supervised", "--hidden_channels", "256",
+                              "--epochs", "3", "--runs", "1", "--log_steps", "3",
+                              "--device", DEVICE, "--out_dir", OUT_DIR, "--expt_name",
+                              "chip_smoke_ogbn"])
+        launches = csr_segment_sum.launches
+        run = summary["runs"][0]
+        print(f"ogbn cache: GCN supervised 3 epochs, K1 launches {launches} (expected 18), "
+              f"mean epoch {run['seconds'] / 3 * 1e3:.1f} ms, final test "
+              f"{run['final_test']:.4f}", flush=True)
+        if launches != 18:
+            failures.append(f"ogbn cache: {launches} K1 launches")
+    finally:  # about 0.1 GB: too large to keep among the run's outputs
+        shutil.rmtree(root)
+    return launches, failures
+
+
+def phase_sign_profile(ds):
+    """One SIGN ``kd`` epoch (the oracle teacher) at arxiv shape and full
+    width under torch.profiler, then the steady time of three more epochs
+    (train batches only) and of one evaluation over every node."""
+    import torch
+
+    from efficient_gnns_tpu_torch.cli.arxiv import oracle_teacher_logits
+    from efficient_gnns_tpu_torch.sampling import neighbor_average_features
+    from efficient_gnns_tpu_torch.train import DistillConfig, SIGNTrainer
+
+    feats = neighbor_average_features(ds.graph.to(DEVICE), torch.from_numpy(ds.x).to(DEVICE),
+                                      SIGN_HOPS)
+    trainer = SIGNTrainer(DistillConfig(training="kd", hidden=512, lr=0.001), feats, ds.y,
+                          ds.split_idx, ds.num_classes,
+                          teacher_logits=oracle_teacher_logits(ds.y, ds.num_classes),
+                          device=DEVICE)
+    trainer.train_epoch(1)  # warm-up
+    _profile("sign", lambda: trainer.train_epoch(2), 1)
+    ms = _steady_ms(lambda: [trainer.train_epoch(e) for e in (3, 4, 5)], 3)
+    eval_ms = _steady_ms(trainer.evaluate, 1)
+    print(f"sign kd steady epoch (2 train batches of 50,000, 3 warm epochs, host clock): "
+          f"{ms:.2f} ms; one evaluation (2 batches of 100,000): {eval_ms:.2f} ms", flush=True)
+
+
 PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
-          "thin_group_sweep", "reference", "teacher_reference", "hub_attention", "slice",
-          "teacher_slice", "runtime_spmm", "teacher_profile", "student_profile")
+          "thin_group_sweep", "reference", "teacher_reference", "hub_attention",
+          "sign_reference", "slice", "teacher_slice", "sign_slice", "checkpoint",
+          "ogbn_cache", "runtime_spmm", "teacher_profile", "student_profile", "sign_profile")
 
 
 def main(argv=None) -> int:
@@ -1327,11 +1665,21 @@ def main(argv=None) -> int:
     if run("teacher_reference", phase_teacher_reference) is False:
         failures.append("cuda teacher trainer disagrees with the cpu trainer")
     failures += run("hub_attention", phase_hub_attention) or []
+    failures += run("sign_reference", phase_sign_reference) or []
     k1_launches, slice_failures = run("slice", phase_slice) or (0, [])
-    launches, teacher_failures = run("teacher_slice", phase_teacher_slice) or ({}, [])
+    try:
+        launches, teacher_failures = run("teacher_slice", phase_teacher_slice) or ({}, [])
+        sign_launches, sign_failures = run("sign_slice", phase_sign_slice, ds) or (0, [])
+    finally:  # the teacher's dump is 0.5 GB: too large to keep among the run's outputs
+        for name in ("teacher_dumps", "checkpoints"):
+            shutil.rmtree(os.path.join(OUT_DIR, name), ignore_errors=True)
+    ck_launches, ck_failures = run("checkpoint", phase_checkpoint, ds) or (0, [])
+    ogbn_launches, ogbn_failures = run("ogbn_cache", phase_ogbn_cache, ds) or (0, [])
     rt_launches, rt_failures = run("runtime_spmm", phase_runtime_spmm, ds.graph) or ({}, [])
-    failures += slice_failures + teacher_failures + rt_failures
+    failures += (slice_failures + teacher_failures + sign_failures + ck_failures
+                 + ogbn_failures + rt_failures)
     run("student_profile", phase_student_profile, ds)
+    run("sign_profile", phase_sign_profile, ds)
     if "teacher_profile" in chosen:
         # the teacher's graph, as its CLI builds it: unweighted, with the hub
         # partition that the flagship teacher's hub attention path needs
@@ -1342,7 +1690,8 @@ def main(argv=None) -> int:
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
-    launches["K1"] = k1_launches + launches.get("K1", 0) + rt_launches.get("K1", 0)
+    launches["K1"] = (k1_launches + launches.get("K1", 0) + rt_launches.get("K1", 0)
+                      + sign_launches + ck_launches + ogbn_launches)
     launches["K3"] = launches.get("K3", 0) + rt_launches.get("K3", 0)
     for r in records:  # a shape that the paths never launch counts 0
         on_path = r.get("on_main_path", True)

@@ -9,13 +9,15 @@ Each run appends per-epoch JSONL records to
 command writes ``<out_dir>/<expt_name>-<gnn>-<mode>.json`` (args, per-run
 statistics, across-run statistics).
 
-``--gnn gcn|sage`` with every ``--training`` mode and ``--kd_and_aux`` on
-``--dataset synthetic``. The modes with a teacher read its features and
-logits from the per-seed ``.npz`` dumps in ``--teacher_dir``
+``--gnn gcn|sage`` with every ``--training`` mode and ``--kd_and_aux``, on
+``--dataset synthetic`` or ``ogbn-arxiv`` (the OGB raw cache under
+``--data_root``, ``data/ogb.py``). The modes with a teacher read its
+features and logits from the per-seed ``.npz`` dumps in ``--teacher_dir``
 (``distill/artifacts.py``, written by either package's teacher CLI), or use
-the oracle teacher without one. ``--dataset ogbn-arxiv``,
-``--checkpoint_every`` and ``--resume`` raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+the oracle teacher without one. ``--checkpoint_every N`` saves the training
+state to ``<run dir>/checkpoint.pt`` at the end of every epoch chunk that
+crosses a multiple of N, and at the end of the run; ``--resume`` starts each
+run after its saved epoch.
 """
 
 from __future__ import annotations
@@ -69,7 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
     # teacher artifacts
     p.add_argument("--teacher_dir", type=str, default=None,
                    help="directory of per-seed teacher .npz dumps")
-    p.add_argument("--data_root", type=str, default="dataset")
+    p.add_argument("--data_root", type=str, default="dataset",
+                   help="OGB cache root for --dataset ogbn-arxiv")
     # synthetic dataset sizing
     p.add_argument("--num_nodes", type=int, default=20000)
     p.add_argument("--num_edges", type=int, default=120000)
@@ -84,26 +87,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out_dir", type=str, default="logs")
     p.add_argument("--tensorboard", action="store_true",
                    help="also write TensorBoard event files")
-    p.add_argument("--checkpoint_every", type=int, default=0)
-    p.add_argument("--resume", action="store_true")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="save the training state every N epochs (0 = off)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume each run from its checkpoint if present")
     p.add_argument("--platform", type=str, default=None,
                    help="JAX platform override of the JAX CLI; the port takes "
                         "--device instead")
     return p
 
 
-def _refuse_unported(args) -> None:
+def _check_args(args) -> None:
     if args.platform is not None:
         raise ValueError("--platform selects a JAX platform; use --device")
-    if args.dataset != "synthetic":
-        raise NotImplementedError(
-            f"--dataset {args.dataset} is not ported yet (ROADMAP.md Queue 1)")
-    if args.checkpoint_every or args.resume:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP.md Queue 1 item 6)")
+    if args.dataset not in ("synthetic", "ogbn-arxiv"):
+        raise ValueError(f"--dataset must be synthetic or ogbn-arxiv, got {args.dataset!r}")
 
 
 def load_dataset(args):
+    if args.dataset == "ogbn-arxiv":
+        from efficient_gnns_tpu_torch.data.ogb import load_ogbn_arxiv
+
+        return load_ogbn_arxiv(root=args.data_root)
     from efficient_gnns_tpu_torch.data import synthetic_node_dataset
 
     return synthetic_node_dataset(
@@ -133,7 +138,7 @@ def oracle_teacher_features(y: np.ndarray, num_classes: int) -> np.ndarray:
 def main(argv=None) -> dict:
     """Run the CLI; returns what it writes to the JSON file."""
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
+    _check_args(args)
     import torch
 
     from efficient_gnns_tpu_torch.distill import load_teacher_dump
@@ -206,8 +211,13 @@ def main(argv=None) -> dict:
             args.out_dir, args.expt_name, f"{args.gnn}-{mode}", f"seed{seed}",
         )
         writer = MetricsWriter(run_dir, tensorboard=args.tensorboard)
+        ckpt_path = os.path.join(run_dir, "checkpoint.pt")
+        start_epoch = 1
+        if args.resume and os.path.exists(ckpt_path):
+            start_epoch = trainer.restore_checkpoint(ckpt_path) + 1
+            print(f"Run {run + 1:02d}: resumed from {ckpt_path} at epoch {start_epoch}")
         t0 = time.time()
-        epoch = 1
+        epoch = start_epoch
         while epoch <= args.epochs:
             k = min(args.epoch_chunk, args.epochs - epoch + 1)
             hist = trainer.run_epochs(epoch, k)
@@ -227,13 +237,21 @@ def main(argv=None) -> dict:
                 if ep % args.log_steps == 0 or ep == args.epochs:
                     print(
                         f"Run {run + 1:02d} Epoch {ep:04d} "
-                        f"avg-epoch {(time.time() - t0) / ep:.3f}s "
+                        f"avg-epoch {(time.time() - t0) / (ep - start_epoch + 1):.3f}s "
                         f"loss {float(loss):.4f} (cls {float(loss_cls):.4f}, "
                         f"aux {float(loss_aux):.4f}) "
                         f"train/val/test {accs[0]:.4f}/{accs[1]:.4f}/{accs[2]:.4f}",
                         flush=True,
                     )
+            prev_done = epoch - 1
             epoch += k
+            # save whenever this chunk crossed a multiple of checkpoint_every:
+            # the chunk size and the cadence need not be aligned
+            if args.checkpoint_every and (
+                    (epoch - 1) // args.checkpoint_every > prev_done // args.checkpoint_every):
+                trainer.save_checkpoint(ckpt_path)
+        if args.checkpoint_every:
+            trainer.save_checkpoint(ckpt_path)
         writer.close()
         logger.print_statistics(run)
         results.append(

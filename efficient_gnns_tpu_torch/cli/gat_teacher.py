@@ -8,16 +8,17 @@ with the same flags plus ``--device``:
 ``--save-pred`` writes each seed's dump (softmax output, logits, penultimate
 features) in the ``.npz`` format of ``distill/artifacts.py`` under
 ``<out-dir>/teacher_dumps/<expt-name>/``, which the student CLI reads with
-``--teacher_dir``. The command writes ``<out-dir>/gat_teacher_<expt-name>.json``.
+``--teacher_dir``, and the best-validation weights (the model's
+``state_dict``, ``train/checkpoint.py``) as
+``<out-dir>/checkpoints/<expt-name>/<seed>.pt``. The command writes
+``<out-dir>/gat_teacher_<expt-name>.json``.
 
 The graph is built unweighted with the hub partition (``hub_dense="auto"``),
 as the JAX CLI builds it: with ``--no-attn-dst`` the teacher then takes the
 hub attention path (``ops/hub_attention.py``) on graphs of 200k edges or
-more, and the exact edge softmax below that.
-
-Ported so far: ``--dataset synthetic``. The best-validation msgpack
-checkpoint that the JAX CLI writes beside the dump waits for
-``train/checkpoint.py`` (ROADMAP.md Queue 1).
+more, and the exact edge softmax below that. ``--dataset ogbn-arxiv`` reads
+the OGB raw cache under ``--data-root`` (``data/ogb.py``) into the same kind
+of graph.
 """
 
 from __future__ import annotations
@@ -85,24 +86,28 @@ def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
     if args.platform is not None:
         raise ValueError("--platform selects a JAX platform; use --device")
-    if args.dataset != "synthetic":
-        raise NotImplementedError(
-            f"--dataset {args.dataset} is not ported yet (ROADMAP.md Queue 1)")
+    if args.dataset not in ("synthetic", "ogbn-arxiv"):
+        raise ValueError(f"--dataset must be synthetic or ogbn-arxiv, got {args.dataset!r}")
     if not args.use_labels and args.n_label_iters > 0:
         raise ValueError("'--use-labels' must be enabled when n_label_iters > 0")
 
     import torch
 
-    from efficient_gnns_tpu_torch.data import synthetic_node_dataset
+    from efficient_gnns_tpu_torch.data import load_ogbn_arxiv, synthetic_node_dataset
     from efficient_gnns_tpu_torch.distill import save_teacher_dump
     from efficient_gnns_tpu_torch.train import GATTeacherTrainer, TeacherConfig
+    from efficient_gnns_tpu_torch.train.checkpoint import save_checkpoint
 
-    ds = synthetic_node_dataset(
-        num_nodes=args.num_nodes, num_edges=args.num_edges, seed=42,
-        hub_dense="auto", gcn_norm=False, signal=args.signal, label_noise=args.label_noise,
-        feat_sparse=args.feat_sparse, train_frac=args.train_frac,
-        n_super=args.n_super, sub_scale=args.sub_scale,
-    )
+    # unweighted with the hub partition, as the JAX CLI builds it
+    if args.dataset == "ogbn-arxiv":
+        ds = load_ogbn_arxiv(root=args.data_root, hub_dense="auto", gcn_norm=False)
+    else:
+        ds = synthetic_node_dataset(
+            num_nodes=args.num_nodes, num_edges=args.num_edges, seed=42,
+            hub_dense="auto", gcn_norm=False, signal=args.signal,
+            label_noise=args.label_noise, feat_sparse=args.feat_sparse,
+            train_frac=args.train_frac, n_super=args.n_super, sub_scale=args.sub_scale,
+        )
     cfg = TeacherConfig(
         n_hidden=args.n_hidden, n_layers=args.n_layers, n_heads=args.n_heads,
         dropout=args.dropout, input_drop=args.input_drop,
@@ -162,8 +167,10 @@ def main(argv=None) -> dict:
             dump_dir = os.path.join(args.out_dir, "teacher_dumps", args.expt_name)
             save_teacher_dump(dump_dir, seed, feats.cpu().numpy(), logits.cpu().numpy(),
                               torch.softmax(logits, -1).cpu().numpy())
-            print(f"saved teacher dump ({args.dump_labels} labels) for seed {seed} "
-                  f"(the msgpack checkpoint is not ported yet)", flush=True)
+            ckpt_dir = os.path.join(args.out_dir, "checkpoints", args.expt_name)
+            save_checkpoint(os.path.join(ckpt_dir, f"{seed}.pt"), best["state"])
+            print(f"saved teacher dump ({args.dump_labels} labels) + "
+                  f"best-val checkpoint for seed {seed}", flush=True)
 
     print(f"Average val accuracy: {np.mean(val_accs)} ± {np.std(val_accs)}")
     print(f"Average test accuracy: {np.mean(test_accs)} ± {np.std(test_accs)}")

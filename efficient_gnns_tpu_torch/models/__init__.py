@@ -5,10 +5,12 @@ from efficient_gnns_tpu_torch.models.gnns import (
     ProjectionGCD,
     ProjectionLinear,
     ProjectionMLP,
+    SIGN,
 )
 from efficient_gnns_tpu_torch.models.layers import (
     DGLGATConv,
     ElementWiseLinear,
+    FeedForwardNet,
     GCNConv,
     MaskedBatchNorm,
     SAGEConv,
@@ -18,6 +20,7 @@ from efficient_gnns_tpu_torch.models.transplant import from_jax_params
 __all__ = [
     "DGLGATConv",
     "ElementWiseLinear",
+    "FeedForwardNet",
     "GATTeacher",
     "GCN",
     "GCNConv",
@@ -27,5 +30,6 @@ __all__ = [
     "ProjectionMLP",
     "SAGE",
     "SAGEConv",
+    "SIGN",
     "from_jax_params",
 ]

@@ -1,5 +1,6 @@
 """The GNN model zoo (counterpart of ``efficient_gnns_tpu/models/gnns.py``;
-the GCN and SAGE students, their projection heads and the GAT teacher).
+the GCN and SAGE students, their projection heads, the GAT teacher and the
+graph-agnostic SIGN student).
 
 Every model's ``forward`` returns ``(logits, out_feat)``, ``out_feat`` being
 the representation used by feature-space distillation. Train or eval mode is
@@ -9,7 +10,7 @@ to ``forward``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -18,10 +19,12 @@ from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.models.layers import (
     DGLGATConv,
     ElementWiseLinear,
+    FeedForwardNet,
     GCNConv,
     MaskedBatchNorm,
     SAGEConv,
     dropout,
+    prelu,
     xavier_uniform,
 )
 
@@ -167,3 +170,43 @@ class GATTeacher(nn.Module):
             out_feat = h
         h = self.convs[-1](graph, h, generator).mean(1)
         return self.bias_last(h), out_feat
+
+
+class SIGN(nn.Module):
+    """SIGN over precomputed hop features (reference
+    ``arxiv_dgl/sign.py:136-163``): one :class:`FeedForwardNet`
+    ``inceptions[hop]`` per hop on its input-dropped features, then concat
+    -> PReLU (its own slope) -> dropout (= ``out_feat``, ``hidden *
+    num_hops`` wide) -> the ``project`` FeedForwardNet to the classes.
+
+    Weights are initialized from ``torch.Generator().manual_seed(seed)`` on
+    the CPU, then moved to ``device``.
+    """
+
+    def __init__(self, in_feats: int, hidden: int, out_feats: int, num_hops: int,
+                 ff_layers: int = 2, dropout: float = 0.5, input_drop: float = 0.0, *,
+                 seed: int = 0, device="cuda"):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.inceptions = nn.ModuleList(
+            FeedForwardNet(in_feats, hidden, hidden, ff_layers, dropout,
+                           generator=gen, device=device)
+            for _ in range(num_hops))
+        self.prelu_alpha = nn.Parameter(torch.full((1,), 0.25, device=device))
+        self.project = FeedForwardNet(hidden * num_hops, hidden, out_feats, ff_layers,
+                                      dropout, generator=gen, device=device)
+        self.dropout, self.input_drop = dropout, input_drop
+
+    def forward(self, feats: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        if len(feats) != len(self.inceptions):
+            raise ValueError(f"SIGN takes {len(self.inceptions)} hop features, "
+                             f"got {len(feats)}")
+        hidden = []
+        for ff, f in zip(self.inceptions, feats):
+            if self.training:
+                f = dropout(f, self.input_drop, generator)
+            hidden.append(ff(f, generator))
+        h = prelu(torch.cat(hidden, -1), self.prelu_alpha)
+        out_feat = dropout(h, self.dropout, generator) if self.training else h
+        return self.project(out_feat, generator), out_feat

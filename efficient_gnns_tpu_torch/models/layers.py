@@ -1,6 +1,7 @@
 """Graph convolution layers (counterpart of
 ``efficient_gnns_tpu/models/layers.py``; ``GCNConv``, ``SAGEConv``,
-``MaskedBatchNorm``, ``DGLGATConv`` and ``ElementWiseLinear``).
+``MaskedBatchNorm``, ``DGLGATConv``, ``ElementWiseLinear`` and SIGN's
+``FeedForwardNet``).
 
 Parameters are created on the CPU and initialized from an explicit
 ``torch.Generator``, then moved to ``device``, so one seed gives the same
@@ -64,10 +65,11 @@ class MaskedBatchNorm(nn.Module):
 
 
 def xavier_uniform(in_features: int, features: int, generator: torch.Generator,
-                   device) -> nn.Parameter:
-    """A dense kernel ``[in, out]`` drawn on the CPU, then moved."""
+                   device, gain: float = 1.0) -> nn.Parameter:
+    """A dense kernel ``[in, out]`` drawn on the CPU, then moved; ``gain``
+    ``sqrt(2)`` is flax ``variance_scaling(2.0, "fan_avg", "uniform")``."""
     weight = torch.empty(in_features, features)
-    nn.init.xavier_uniform_(weight, generator=generator)
+    nn.init.xavier_uniform_(weight, gain=gain, generator=generator)
     return nn.Parameter(weight.to(device))
 
 
@@ -227,4 +229,40 @@ class ElementWiseLinear(nn.Module):
             x = x * self.weight.to(x.dtype)
         if self.bias is not None:
             x = x + self.bias.to(x.dtype)
+        return x
+
+
+def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """PReLU with one shared slope: ``x`` where ``x >= 0``, else ``alpha * x``."""
+    return torch.where(x >= 0, x, alpha.to(x.dtype) * x)
+
+
+class FeedForwardNet(nn.Module):
+    """SIGN's MLP block (reference ``arxiv_dgl/sign.py:105-134``):
+    ``n_layers`` dense layers (``weights[i]`` ``[in, out]``, ``biases[i]``)
+    with PReLU and dropout between them, xavier-uniform init with the ReLU
+    gain, zero biases. One PReLU slope ``prelu_alpha`` (0.25 at init) serves
+    every layer of the block and exists only when ``n_layers > 1``."""
+
+    def __init__(self, in_feats: int, hidden: int, out_feats: int, n_layers: int,
+                 dropout: float, *, generator: torch.Generator, device="cuda"):
+        super().__init__()
+        dims = [in_feats] + [hidden] * (n_layers - 1) + [out_feats]
+        self.weights = nn.ParameterList(
+            xavier_uniform(dims[i], dims[i + 1], generator, device, gain=math.sqrt(2.0))
+            for i in range(n_layers))
+        self.biases = nn.ParameterList(
+            nn.Parameter(torch.zeros(dims[i + 1], device=device)) for i in range(n_layers))
+        self.prelu_alpha = (nn.Parameter(torch.full((1,), 0.25, device=device))
+                            if n_layers > 1 else None)
+        self.dropout = dropout
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        last = len(self.weights) - 1
+        for i, (w, b) in enumerate(zip(self.weights, self.biases)):
+            x = x @ w + b
+            if i < last:
+                x = prelu(x, self.prelu_alpha)
+                if self.training:
+                    x = dropout(x, self.dropout, generator)
         return x

@@ -5,9 +5,10 @@ nested dicts of NumPy arrays (e.g. ``jax.tree.map(np.asarray, params)``,
 converted by the caller) and returns a ``state_dict`` for the port's model or
 projection head. A flax ``Dense`` kernel is ``[in, out]``; the port keeps
 that layout (its ``GCNConv.weight``, ``SAGEConv.weight`` / ``root_weight``,
-the projection heads' ``weight`` / ``lin_weight`` and ``DGLGATConv.fc_weight``
-/ ``res_weight`` are applied as ``x @ weight``), so kernels are copied, not
-transposed; ``attn_l`` / ``attn_r`` keep their ``[D, H]`` layout too.
+the projection heads' ``weight`` / ``lin_weight``, ``DGLGATConv.fc_weight``
+/ ``res_weight`` and ``FeedForwardNet.weights`` are applied as ``x @
+weight``), so kernels are copied, not transposed; ``attn_l`` / ``attn_r``
+keep their ``[D, H]`` layout too.
 """
 
 from __future__ import annotations
@@ -39,6 +40,14 @@ _PARAM_RULES = (
     (re.compile(r"gat_(\d+)/Dense_1/kernel"), "convs.{}.res_weight"),
     (re.compile(r"gat_(\d+)/attn_([lr])"), "convs.{}.attn_{}"),
     (re.compile(r"bias_last/bias"), "bias_last.bias"),
+    # SIGN: one FeedForwardNet per hop, the shared slope, the project FFN
+    (re.compile(r"inception_(\d+)/lin_(\d+)/kernel"), "inceptions.{}.weights.{}"),
+    (re.compile(r"inception_(\d+)/lin_(\d+)/bias"), "inceptions.{}.biases.{}"),
+    (re.compile(r"inception_(\d+)/prelu_alpha"), "inceptions.{}.prelu_alpha"),
+    (re.compile(r"project/lin_(\d+)/kernel"), "project.weights.{}"),
+    (re.compile(r"project/lin_(\d+)/bias"), "project.biases.{}"),
+    (re.compile(r"project/prelu_alpha"), "project.prelu_alpha"),
+    (re.compile(r"prelu_alpha"), "prelu_alpha"),
     # both
     (re.compile(r"bn_(\d+)/scale"), "bns.{}.scale"),
     (re.compile(r"bn_(\d+)/bias"), "bns.{}.bias"),
@@ -78,7 +87,7 @@ def _rename(flat: Dict[str, np.ndarray], rules) -> Dict[str, torch.Tensor]:
 
 
 def from_jax_params(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """``state_dict`` for the port's ``GCN``, ``SAGE``, ``GATTeacher`` or a
+    """``state_dict`` for the port's ``GCN``, ``SAGE``, ``GATTeacher``, ``SIGN`` or a
     projection head (``ProjectionLinear``, ``ProjectionMLP``,
     ``ProjectionGCD``) from the JAX module's ``params`` and ``batch_stats``."""
     state = _rename(_flatten(params), _PARAM_RULES)

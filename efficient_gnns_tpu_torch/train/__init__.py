@@ -3,6 +3,7 @@ from efficient_gnns_tpu_torch.train.gat_teacher import GATTeacherTrainer, Teache
 from efficient_gnns_tpu_torch.train.logger import Logger
 from efficient_gnns_tpu_torch.train.metrics import MetricsWriter
 from efficient_gnns_tpu_torch.train.node_trainer import NodeDistillTrainer
+from efficient_gnns_tpu_torch.train.sign_trainer import SIGNTrainer
 
 __all__ = [
     "DistillConfig",
@@ -10,5 +11,6 @@ __all__ = [
     "Logger",
     "MetricsWriter",
     "NodeDistillTrainer",
+    "SIGNTrainer",
     "TeacherConfig",
 ]

@@ -21,11 +21,16 @@ import torch
 from efficient_gnns_tpu_torch.distill import criteria
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.models.gnns import ProjectionGCD, ProjectionMLP
+from efficient_gnns_tpu_torch.train import checkpoint
 from efficient_gnns_tpu_torch.train.config import DistillConfig
 
 
 def _on(a, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+    """``a`` (a tensor on any device, or an array) as a ``dtype`` tensor on
+    ``device``."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(np.asarray(a))
+    return a.to(device=device, dtype=dtype)
 
 
 def _derived_seed(*key: int) -> int:
@@ -45,7 +50,7 @@ class NodeDistillTrainer:
     ``optax.adamw``: bias-corrected moments, eps added outside the square
     root, decoupled weight decay. Dropout and row subsampling draw from a
     ``torch.Generator`` on ``device``, seeded from ``(seed, epoch)`` at every
-    epoch.
+    epoch, so a run restored from a checkpoint continues as it would have.
     """
 
     def __init__(
@@ -104,6 +109,7 @@ class NodeDistillTrainer:
                                    weight_decay=config.weight_decay)
         )
         self.generator = torch.Generator(device=self.device)
+        self.step = 0  # train steps taken (one an epoch)
 
     def _projected(self, feat, tr):
         """Student and teacher features of the train rows through the heads:
@@ -165,6 +171,7 @@ class NodeDistillTrainer:
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
         self.opt.step()
+        self.step += 1
         return loss.detach(), loss_cls.detach(), loss_aux.detach()
 
     @torch.no_grad()
@@ -197,3 +204,29 @@ class NodeDistillTrainer:
         evaluation forward."""
         logits, accs = self._eval_step()
         return logits, tuple(float(a) for a in accs)
+
+    def _named_modules(self) -> Dict[str, torch.nn.Module]:
+        named = {"model": self.model, "sproj": self.sproj, "tproj": self.tproj}
+        return {k: m for k, m in named.items() if m is not None}
+
+    def save_checkpoint(self, path: str) -> str:
+        """Write the model's and the heads' ``state_dict`` (BatchNorm running
+        statistics included), the optimizer's moments by parameter name and
+        the steps taken; returns ``path``."""
+        named = self._named_modules()
+        return checkpoint.save_checkpoint(path, {
+            "step": self.step,
+            "modules": {k: m.state_dict() for k, m in named.items()},
+            "optimizer": checkpoint.optimizer_moments(named, self.opt),
+        })
+
+    def restore_checkpoint(self, path: str) -> int:
+        """Restore what :meth:`save_checkpoint` wrote; returns the steps
+        taken, i.e. the epochs already trained."""
+        state = checkpoint.load_checkpoint(path, map_location="cpu")
+        named = self._named_modules()
+        for key, module in named.items():
+            module.load_state_dict(state["modules"][key])
+        checkpoint.load_optimizer_moments(named, self.opt, state["optimizer"])
+        self.step = int(state["step"])
+        return self.step

@@ -193,3 +193,45 @@ def test_hub_attention_on_card_matches_cpu(rng, cuda_device, h, d, seed):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     if seed is not None:  # the same seed keeps the same edges on both devices
         assert torch.equal(card[3], cpu[3])
+
+
+@pytest.mark.parametrize("gcn_norm", [True, False])
+def test_sign_hop_features_on_card_match_cpu(rng, cuda_device, gcn_norm):
+    from efficient_gnns_tpu_torch.ops.cuda import segment_sum
+    from efficient_gnns_tpu_torch.sampling import neighbor_average_features
+
+    graph = _high_degree(rng, bidirected=True, self_loops=True, gcn_norm=gcn_norm)
+    x = torch.from_numpy(rng.normal(size=(N, 128)).astype(np.float32))
+    want = neighbor_average_features(graph, x, 3)
+    segment_sum.csr_segment_sum.launches = 0
+    got = neighbor_average_features(graph.to(cuda_device), x.to(cuda_device), 3)
+    assert segment_sum.csr_segment_sum.launches == 3  # K1 once a hop
+    # each entry within 1e-5 of its sum of |terms| (the same hops over |x|:
+    # the weights are positive), however small a late hop's entries are
+    terms = neighbor_average_features(graph, x.abs(), 3)
+    for g, w, t in zip(got, want, terms):
+        assert bool(((g.cpu() - w).abs() <= 1e-5 * t).all())
+
+
+@pytest.mark.parametrize("mode,kd_and_aux", [("supervised", False), ("nce", True)])
+def test_sign_trainer_epoch_on_card_matches_cpu(rng, cuda_device, mode, kd_and_aux):
+    from efficient_gnns_tpu_torch.train import DistillConfig, SIGNTrainer
+
+    n = 300
+    feats = [rng.normal(size=(n, 16)).astype(np.float32) for _ in range(3)]
+    y = rng.integers(0, 4, size=n)
+    split = {"train": np.arange(0, 150), "valid": np.arange(150, 220),
+             "test": np.arange(220, n)}
+    t_feat = rng.normal(size=(n, 8)).astype(np.float32)
+    t_logits = rng.normal(size=(n, 4)).astype(np.float32)
+    cfg = DistillConfig(training=mode, kd_and_aux=kd_and_aux, hidden=32, dropout=0.0,
+                        lr=0.01, beta=1.0, max_samples=64, proj_dim=8)
+    results = {}
+    for dev in ("cpu", cuda_device):  # batches of 64: the last one padded
+        # the hop features as the CLI hands them over: tensors on the device
+        on_dev = [torch.from_numpy(f).to(dev) for f in feats]
+        tr = SIGNTrainer(cfg, on_dev, y, split, 4, batch_size=64, eval_batch_size=128,
+                         teacher_feat=t_feat, teacher_logits=t_logits, device=dev)
+        results[str(dev)] = [tr.train_epoch(e)["loss"] for e in (1, 2)] + list(tr.evaluate())
+    np.testing.assert_allclose(results[str(cuda_device)][:2], results["cpu"][:2], rtol=1e-4)
+    np.testing.assert_allclose(results[str(cuda_device)][2:], results["cpu"][2:], atol=0.02)

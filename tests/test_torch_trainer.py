@@ -198,11 +198,15 @@ def test_criteria_match_jax(rng, reduction, masked):
         np.testing.assert_allclose(g.item(), float(w), rtol=1e-6)
 
 
-def test_unported_modes_name_the_roadmap():
-    # every training mode is ported; what still waits names its ROADMAP item
-    for argv in (["--checkpoint_every", "5"], ["--resume"], ["--dataset", "ogbn-arxiv"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(["--device", "cpu", *argv])
+def test_unported_modes_name_the_roadmap(tmp_path):
+    # every mode and flag of the JAX CLI is ported (the checkpoint flags and
+    # the OGB loader: tests/test_torch_checkpoint.py, tests/test_torch_ogb.py);
+    # a missing OGB cache raises a RuntimeError, an unknown dataset or mode a
+    # ValueError
+    with pytest.raises(RuntimeError, match="no ogbn-arxiv raw cache"):
+        cli.main(["--device", "cpu", "--dataset", "ogbn-arxiv", "--data_root", str(tmp_path)])
+    with pytest.raises(ValueError, match="synthetic or ogbn-arxiv"):
+        cli.main(["--device", "cpu", "--dataset", "ogbn-products"])
     with pytest.raises(ValueError, match="unknown training mode"):
         DistillConfig(training="nce-nodes")
 
