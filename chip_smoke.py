@@ -92,7 +92,23 @@ it imports nothing of JAX. Phases, each of which must pass:
 18. the OGB raw cache: the arxiv-shaped dataset written as an ogbn-arxiv
     ``csv.gz`` cache, read back by ``data/ogb.py`` (the graph equal to the
     one built from the same edges), and the GCN student trained 3 epochs on
-    it through ``cli.arxiv --dataset ogbn-arxiv``.
+    it through ``cli.arxiv --dataset ogbn-arxiv``;
+19. small-input reference: the PPI trainer on the card against the same
+    trainer on the CPU (``supervised``, ``kd``, ``nce``, ``lpw`` composed with
+    logit KD);
+20. K2 and K4-K7 against their plain versions on the largest graph of the
+    PPI-shaped data (20 / 2 / 2 graphs of 591-3,480 nodes, padded to 3,584
+    nodes and 101,376 edges; no long row, so both row splits are empty) at
+    the PPI models' shapes (H x D = 4 x 256, 6 x 121, 2 x 68, 2 x 121), with
+    the records of phase 6;
+21. the PPI slice: that data written as the torch-geometric raw files and
+    read back by ``data/ppi.py``, then ``efficient_gnns_tpu_torch.cli.ppi``
+    trains TeacherNet (3 layers of 4 x 256, a 6-head mean) with
+    ``--train_teacher`` and StudentNet (5 layers of 2 x 68) in ``kd`` and
+    ``nce --kd_and_aux`` from its checkpoint, 3 epochs each, every kernel's
+    counter read around each run;
+22. a profile of one TeacherNet and one StudentNet ``kd`` train epoch at the
+    PPI shape, with the steady epoch and evaluation times.
 
 ``--only a,b`` runs the named phases alone (see ``main``). The last lines
 are the kernels' JSON record, the ``nvidia-smi`` line and
@@ -460,8 +476,10 @@ def _library_ms(what, fn):
         return None
 
 
-def phase_attention_kernels(graph):
-    """K2, K4-K7 against their plain versions at the teacher's shapes."""
+def phase_attention_kernels(graph, heads=HEADS, suffix=""):
+    """K2, K4-K7 against their plain versions on ``graph`` at the ``heads``
+    (H, D) pairs (K5-K7 once for each H); ``suffix`` ends the records'
+    names. The teacher's arxiv shapes by default."""
     import torch
 
     from efficient_gnns_tpu_torch.graphs import build_row_split
@@ -480,22 +498,23 @@ def phase_attention_kernels(graph):
         plain_ms = _time_ms(plain)
         bound_ms, bound_by = _bound(n_bytes, n_ops)
         records.append({
-            "name": f"{kernel} {name}", "route": "cuda", "source": source + src_file,
+            "name": f"{kernel} {name}{suffix}", "route": "cuda", "source": source + src_file,
             "replaces": pallas + replaces, "launches": None, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library, "shape": shape,
         })
-        print(f"  {kernel} {name}: max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'} "
+        print(f"  {kernel} {name}{suffix}: max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'} "
               f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library} "
               f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
         if not ok:
-            failures.append(f"{kernel} {name}")
+            failures.append(f"{kernel} {name}{suffix}")
 
     directions = (
         ("fwd", g.senders, g.receivers, g.row_offsets, None, g.row_split),
         ("bwd", g.t_senders, g.t_receivers, g.t_row_offsets, g.csc_perm.long(),
          g.t_row_split))
-    for h, d in HEADS:
+    thin_heads = set()  # K5-K7 run once for each H
+    for h, d in heads:
         hd = h * d
         x = torch.randn(n, hd, generator=gen, device=DEVICE)
         gg = torch.randn(n, hd, generator=gen, device=DEVICE)
@@ -528,7 +547,9 @@ def phase_attention_kernels(graph):
                    lambda: K.csr_segment_sum_heads(x, wd, src, ro, sp),
                    lambda: K.csr_segment_sum_heads_plain(x, wd, src, ro), lib,
                    2 * n * hd * 4 + e * 4 + e * h * 4 + (n + 1) * 4, 2 * e * hd, shape)
-            records[-1]["redesigned"] = "row split"
+            records[-1].update(redesigned="row split", device_ms=_device_ms(
+                lambda: K.csr_segment_sum_heads(x, wd, src, ro, sp)))
+            print(f"  K2 {tag}: device alone ms={records[-1]['device_ms']:.4f}", flush=True)
             del got, want, scale, diff
             # K4: per-edge head dots; tolerance on each dot's sum of |terms|
             got = K.csr_sddmm_heads(gg, x, src, ro, h, sp)
@@ -560,7 +581,9 @@ def phase_attention_kernels(graph):
                    lambda: K.csr_sddmm_heads(gg, x, src, ro, h, sp),
                    lambda: K.csr_sddmm_heads_plain(gg, x, src, ro, h), lib,
                    2 * n * hd * 4 + e * 4 + (n + 1) * 4 + e_pad * h * 4, 2 * e * hd, shape)
-            records[-1]["redesigned"] = "row walk, g once per row"
+            records[-1].update(redesigned="row walk, g once per row", device_ms=_device_ms(
+                lambda: K.csr_sddmm_heads(gg, x, src, ro, h, sp)))
+            print(f"  K4 {tag}: device alone ms={records[-1]['device_ms']:.4f}", flush=True)
             del got, want, scale, diff, pattern, mats
             # K5 / K6: thin segment sum and max; K7: rows back to the edges
             offsets = ro.long()
@@ -579,6 +602,9 @@ def phase_attention_kernels(graph):
                 print(f"  {kernel} {tag}: device alone ms={records[-1]['device_ms']:.4f} "
                       f"{lib_name} {records[-1]['library_device_ms']:.4f}", flush=True)
 
+            if (h, direction) in thin_heads:
+                continue
+            thin_heads.add((h, direction))
             for kernel, fn, op, line in (("K5", K.csr_segment_sum_thin, "sum", 114),
                                          ("K6", K.csr_segment_max_thin, "max", 186)):
                 got = fn(v, ro, sp)
@@ -610,7 +636,7 @@ def phase_attention_kernels(graph):
                  lambda: K.csr_tile_rows_thin_plain(vals, dst, ro),
                  "index_select", lambda: vals.index_select(0, dst[:e]),
                  n * h * 4 + e * 4 + e_pad * h * 4, 0)
-            if h == HEADS[0][0] and direction == "fwd":
+            if h == heads[0][0] and direction == "fwd":
                 host = {k: _host_us(f) for k, f in (
                     ("empty launch", lambda: K.segment_thin.empty_launch(DEVICE)),
                     ("K5", lambda: K.csr_segment_sum_thin(v, ro, sp)),
@@ -622,7 +648,7 @@ def phase_attention_kernels(graph):
                       + ", ".join(f"{k} {us:.1f}" for k, us in host.items()), flush=True)
             del got, want
     # padding edges lie past row_offsets[N]: poisoned, they must change nothing
-    h, d = HEADS[1]
+    h, d = heads[-1]
     x = torch.randn(n, h * d, generator=gen, device=DEVICE)
     w = torch.rand(e_pad, h, generator=gen, device=DEVICE)
     src, dst = g.senders.clone(), g.receivers.clone()
@@ -646,14 +672,16 @@ def phase_attention_kernels(graph):
     failures += [f"{k} read a padding edge" for k, ok in checks.items() if not ok]
     # a split of other offsets with the same rows and edges (the degrees in
     # reverse order; this graph is symmetric, so its transpose order will not
-    # do): only its content tells, and the wrapper must refuse it
-    reverse = torch.zeros_like(g.row_offsets)
-    reverse[1:] = torch.cumsum((g.row_offsets[1:] - g.row_offsets[:-1]).flip(0), 0)
-    try:
-        K.csr_segment_sum_thin(w, g.row_offsets, build_row_split(reverse).to(DEVICE))
-        failures.append("K5 took the row split of other offsets")
-    except ValueError:
-        pass
+    # do): only its content tells, and the wrapper must refuse it. Without a
+    # long row every offsets' split is the same empty schedule, rightly taken
+    if g.row_split.num_long:
+        reverse = torch.zeros_like(g.row_offsets)
+        reverse[1:] = torch.cumsum((g.row_offsets[1:] - g.row_offsets[:-1]).flip(0), 0)
+        try:
+            K.csr_segment_sum_thin(w, g.row_offsets, build_row_split(reverse).to(DEVICE))
+            failures.append("K5 took the row split of other offsets")
+        except ValueError:
+            pass
     torch.cuda.synchronize()
     return records, failures
 
@@ -1207,8 +1235,9 @@ def _profile(tag, chunk, epochs, also=()):
     """``chunk()`` (``epochs`` epochs of a trainer, ending in its one host
     copy) under torch.profiler: wall time, device busy time and idle share,
     device time by kernel (the 14 largest, and every kernel whose name holds
-    one of ``also``), and the host calls that wait for the device. The table
-    goes to ``OUT_DIR/<tag>_profile.txt``."""
+    one of ``also``), the host calls that wait for the device and the host
+    ops of most self CPU time. The tables, by device and by host time, go to
+    ``OUT_DIR/<tag>_profile.txt``; returns the device busy ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1225,24 +1254,34 @@ def _profile(tag, chunk, epochs, also=()):
         return ev.self_cuda_time_total if us is None else us
 
     # device-side entries only: a kernel launched through ctypes is also
-    # charged to the host-side op around it (e.g. _GATAttention)
+    # charged to the host-side op around it (e.g. _GATAttention), and a user
+    # annotation (the optimizer's step) spans its kernels and the gaps
+    # between them
     averages = prof.key_averages()
     events = [ev for ev in averages
-              if ev.device_type == DeviceType.CUDA and self_device_us(ev) > 0]
+              if ev.device_type == DeviceType.CUDA and self_device_us(ev) > 0
+              and not getattr(ev, "is_user_annotation", False)]
     device_ms = sum(self_device_us(ev) for ev in events) / 1e3
     events.sort(key=lambda ev: -self_device_us(ev))
-    waits = {ev.key: ev.count for ev in averages
-             if ev.device_type == DeviceType.CPU and ev.key in _WAITS}
+    host = sorted((ev for ev in averages if ev.device_type == DeviceType.CPU),
+                  key=lambda ev: -ev.self_cpu_time_total)
+    waits = {ev.key: ev.count for ev in host if ev.key in _WAITS}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"{tag}_profile.txt"), "w") as f:
         f.write(averages.table(sort_by="self_cuda_time_total", row_limit=40))
+        f.write(averages.table(sort_by="self_cpu_time_total", row_limit=40))
     print(f"{tag} profile, {epochs} epoch(s) in one chunk: wall {wall_ms:.1f} ms "
-          f"(profiled), device busy {device_ms:.1f} ms "
+          f"(profiled), device busy {device_ms:.1f} ms in "
+          f"{sum(ev.count for ev in events)} device calls "
           f"({100 * (1 - device_ms / wall_ms):.1f}% idle); host calls that wait for "
           f"the device, the closing synchronize included: {waits}", flush=True)
     for i, ev in enumerate(events):
         if i < 14 or any(name in ev.key for name in also):
             print(f"  {self_device_us(ev) / 1e3:9.3f} ms  {ev.count:4d}x  {ev.key[:90]}")
+    print(f"  host, self CPU time (profiled) {sum(ev.self_cpu_time_total for ev in host) / 1e3:.1f}"
+          " ms, the largest: " + ", ".join(f"{ev.key} {ev.self_cpu_time_total / 1e3:.1f} ms "
+                                          f"{ev.count}x" for ev in host[:8]), flush=True)
+    return device_ms
 
 
 def _steady_ms(chunk, epochs):
@@ -1606,10 +1645,257 @@ def phase_sign_profile(ds):
           f"{ms:.2f} ms; one evaluation (2 batches of 100,000): {eval_ms:.2f} ms", flush=True)
 
 
+# the PPI workload (ppi_pyg/gnn.py:305-310): 20 train, 2 valid and 2 test
+# graphs of 591-3,480 nodes, about 28 edges a node both ways, 50 features,
+# 121 labels; every graph padded to 3,584 nodes and 101,376 edges
+PPI_SHAPE = dict(n_train=20, n_valid=2, n_test=2, min_nodes=591, max_nodes=3480, avg_deg=14)
+# TeacherNet's hidden layers and its last layer, StudentNet's hidden and last
+PPI_HEADS = ((4, 256), (6, 121), (2, 68), (2, 121))
+PPI_EPOCHS = 3
+PPI_NCE = ["--beta", "0.1", "--nce_T", "0.075", "--max_samples", "16384", "--proj_dim",
+           "256"]  # experiments/ppi.json, the nce grid point
+PPI_ROOT = os.path.join(OUT_DIR, "ppi_cache")
+
+
+def _ppi_launches(student_convs, teacher_convs=0, n_train=20, n_eval=24):
+    """Kernel launches of one PPI epoch, from the code: each ``gat_attention``
+    forward launches K7 (er), K6, K7 (max), K5, K7 (1 / sum), K2; each
+    backward K4, K5, K7, K5 (der), K5 (del), K2. A train step runs the
+    student's convs forward and backward and the teacher's forward; the
+    evaluation forwards every graph once."""
+    fwd = n_train * (student_convs + teacher_convs) + n_eval * student_convs
+    bwd = n_train * student_convs
+    return {"K1": 0, "K2": fwd + bwd, "K3": 0, "K4": bwd, "K5": fwd + 3 * bwd,
+            "K6": fwd, "K7": 3 * fwd + bwd}
+
+
+def phase_ppi_kernels(ds):
+    """K2 and K4-K7 against their plain versions on the largest PPI graph
+    (no row above the split threshold: both row splits empty), forward and
+    transpose CSR, at the PPI models' (H, D) pairs, with the records of
+    ``phase_attention_kernels``."""
+    graph = max(ds.train + ds.valid + ds.test, key=lambda g: g.graph.n_edge).graph
+    splits = (graph.row_split, graph.t_row_split)
+    deg = (graph.row_offsets[1:] - graph.row_offsets[:-1]).max()
+    print(f"ppi kernels graph: N={graph.num_nodes} (padded) E={graph.n_edge} "
+          f"E_pad={graph.num_edges_padded} max row degree={int(deg)} long rows "
+          f"{[sp.num_long for sp in splits]} chunks {[sp.num_chunks for sp in splits]}",
+          flush=True)
+    failures = []
+    if any(sp.num_long or sp.num_chunks for sp in splits):
+        failures.append("ppi kernels: the largest PPI graph has long rows")
+    records, fails = phase_attention_kernels(graph, PPI_HEADS, " ppi")
+    return records, failures + fails
+
+
+def phase_ppi_reference():
+    """``PPITrainer`` on the card against the same trainer on the CPU (which
+    the tests hold against the JAX package), same start, 3 epochs on small
+    PPI-shaped graphs: ``supervised``, ``kd``, ``nce`` and ``lpw`` composed
+    with logit KD, ``max_samples`` at the padded rows (no row subset, whose
+    draws differ between the devices' generators). Per-epoch losses to the
+    ``reference`` phase's tolerance."""
+    import numpy as np
+
+    from efficient_gnns_tpu_torch.data import synthetic_ppi_dataset
+    from efficient_gnns_tpu_torch.models import PPIGAT
+    from efficient_gnns_tpu_torch.train import DistillConfig, PPITrainer
+
+    ds = synthetic_ppi_dataset(n_train=4, n_valid=1, n_test=1, min_nodes=300, max_nodes=600,
+                               avg_deg=14, seed=5)
+    n_pad = ds.train[0].graph.num_nodes
+    failures = []
+    for tag, cfg in (("supervised", {}), ("kd", dict(training="kd")),
+                     ("nce", dict(training="nce", beta=0.1, proj_dim=32)),
+                     ("lpw+kd", dict(training="lpw", kd_and_aux=True))):
+        hist, f1 = {}, {}
+        for device in ("cpu", DEVICE):
+            teacher = PPIGAT(ds.feat_dim, 16, ds.num_labels, 3, heads=4, final_heads=6,
+                             seed=1, device=device)
+            student = PPIGAT(ds.feat_dim, 8, ds.num_labels, 3, heads=2, seed=0, device=device)
+            trainer = PPITrainer(
+                DistillConfig(**{"lr": 0.005, "alpha": 0.5, "kd_T": 1.0, "beta": 100.0,
+                                 "max_samples": n_pad, **cfg}),
+                ds, student, teacher=teacher, teacher_feat_dim=64, seed=0, device=device)
+            hist[device] = np.array([[m["loss"], m["loss_cls"], m["loss_aux"]] for m in (
+                trainer.train_epoch(e) for e in (1, 2, 3))])
+            f1[device] = trainer.evaluate_all()
+        got, want = hist[DEVICE], hist["cpu"]
+        print(f"ppi reference {tag}: cuda vs cpu trainer, 3 epochs, losses "
+              f"{got[:, 0].tolist()} max_abs_err={float(np.abs(got - want).max()):.3e}; "
+              f"micro-F1 cuda {f1[DEVICE]} cpu {f1['cpu']}", flush=True)
+        if not (np.isfinite(got).all() and np.allclose(got, want, rtol=1e-4, atol=1e-6)):
+            failures.append(f"ppi reference {tag}: the card's losses disagree with the CPU")
+    return failures
+
+
+def _write_ppi_cache(root, ds):
+    """``ds`` as the torch-geometric raw files: per split, node-link JSON
+    whose ``links`` hold each undirected edge once (the built graph's edges
+    with sender < receiver: the loader adds the reverse and the self loops),
+    the features and labels of the real nodes, and each node's graph id."""
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    for split in ("train", "valid", "test"):
+        links, feats, labels, gid, start = [], [], [], [], 0
+        for k, g in enumerate(getattr(ds, split)):
+            e = g.graph.n_edge
+            s = g.graph.senders[:e].numpy().astype(np.int64)
+            r = g.graph.receivers[:e].numpy().astype(np.int64)
+            links.append(np.stack([s[s < r], r[s < r]], 1) + start)
+            feats.append(g.x[:g.num_nodes])
+            labels.append(g.y[:g.num_nodes])
+            gid.append(np.full(g.num_nodes, k + 1, np.int64))
+            start += g.num_nodes
+        with open(os.path.join(root, f"{split}_graph.json"), "w") as f:
+            json.dump({"directed": False, "multigraph": False, "graph": {},
+                       "nodes": [{"id": i} for i in range(start)],
+                       "links": [{"source": a, "target": b}
+                                 for a, b in np.concatenate(links).tolist()]}, f)
+        for part, arr in (("feats", feats), ("labels", labels), ("graph_id", gid)):
+            np.save(os.path.join(root, f"{split}_{part}.npy"), np.concatenate(arr))
+
+
+def _ppi_run(tag, argv, expected):
+    """One run of the PPI CLI on the raw cache, every kernel's counter read
+    around it; returns (launches by kernel, failures)."""
+    import math
+
+    from efficient_gnns_tpu_torch.cli import ppi
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    summary = ppi.main(["--dataset", "ppi", "--data_root", PPI_ROOT, "--epochs",
+                        str(PPI_EPOCHS), "--runs", "1", "--out_dir", OUT_DIR, "--expt_name",
+                        "chip_smoke_ppi", "--device", DEVICE, *argv])
+    launches = {k: c.launches for k, c in counters.items()}
+    run = summary["runs"][0]
+    want = {k: v * PPI_EPOCHS for k, v in expected.items()}
+    print(f"ppi slice {tag}: launches {launches} (expected {want}) mean epoch (20 steps "
+          f"and 24 evaluation forwards) {run['seconds'] / PPI_EPOCHS * 1e3:.1f} ms; "
+          f"micro-F1 train/valid/test by epoch "
+          f"{[[round(v, 4) for v in f1] for f1 in run['f1']]}; losses "
+          f"{[round(v, 4) for v in run['losses']]}", flush=True)
+    failures = []
+    if launches != want:
+        failures.append(f"ppi slice {tag}: launches {launches}")
+    if not all(math.isfinite(v) for v in run["losses"]):
+        failures.append(f"ppi slice {tag}: losses not finite")
+    return launches, failures
+
+
+def phase_ppi_slice(ds):
+    """The PPI-shaped data written as the torch-geometric raw files and read
+    back by ``data/ppi.py`` (each graph's real edges, features and labels
+    equal to the written ones); then ``cli.ppi`` on that cache at the full
+    width of the reference's nets: TeacherNet with ``--train_teacher``, then
+    StudentNet in ``kd`` and in ``nce --kd_and_aux`` (the ``experiments/
+    ppi.json`` nce grid point) from its checkpoint; cut in time only, 3 epochs
+    and 1 run each. Every kernel counted around each run. The cache and the
+    checkpoint are removed. Returns (launches by kernel, failures)."""
+    import numpy as np
+
+    from efficient_gnns_tpu_torch.cli.ppi import teacher_checkpoint_path
+    from efficient_gnns_tpu_torch.data import load_ppi
+
+    failures = []
+    launches = {k: 0 for k in _counters()}
+    try:
+        t0 = time.perf_counter()
+        _write_ppi_cache(PPI_ROOT, ds)
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(PPI_ROOT, f)) for f in os.listdir(PPI_ROOT))
+        t0 = time.perf_counter()
+        got = load_ppi(PPI_ROOT)
+        load_s = time.perf_counter() - t0
+        same = all(
+            a.num_nodes == b.num_nodes and a.graph.n_edge == b.graph.n_edge
+            and np.array_equal(a.x[:a.num_nodes], b.x[:b.num_nodes])
+            and np.array_equal(a.y[:a.num_nodes], b.y[:b.num_nodes])
+            and all(np.array_equal(getattr(a.graph, k)[:a.graph.n_edge].numpy(),
+                                   getattr(b.graph, k)[:b.graph.n_edge].numpy())
+                    for k in ("senders", "receivers", "t_senders", "t_receivers"))
+            for split in ("train", "valid", "test")
+            for a, b in zip(getattr(got, split), getattr(ds, split)))
+        g0 = got.train[0].graph
+        print(f"ppi cache: {size} bytes, write {write_s:.1f} s, load with the graph builds "
+              f"{load_s:.1f} s; padded to {g0.num_nodes} nodes, {g0.num_edges_padded} edges; "
+              f"real edges, features and labels equal to the written ones: {same}",
+              flush=True)
+        if not same:
+            failures.append("ppi cache: the loaded graphs differ from the written ones")
+        del got
+        student = _ppi_launches(5, 3)
+        for tag, argv, expected in (
+                ("teacher", ["--train_teacher"], _ppi_launches(3)),
+                ("student kd", ["--training", "kd"], student),
+                ("student nce --kd_and_aux", ["--training", "nce", "--kd_and_aux", *PPI_NCE],
+                 student)):
+            if tag != "teacher":
+                argv += ["--teacher_path", os.path.join(OUT_DIR, "ppi_teacher",
+                                                        "chip_smoke_ppi")]
+            more, fails = _ppi_run(tag, argv, expected)
+            launches = {k: v + more[k] for k, v in launches.items()}
+            failures += fails
+            if tag == "teacher" and not os.path.exists(
+                    teacher_checkpoint_path(OUT_DIR, "chip_smoke_ppi", 0)):
+                failures.append("ppi slice: no teacher checkpoint")
+                break
+    finally:  # about 0.1 GB of cache and a 12 MB checkpoint: not kept
+        for d in (PPI_ROOT, os.path.join(OUT_DIR, "ppi_teacher")):
+            shutil.rmtree(d, ignore_errors=True)
+    return launches, failures
+
+
+def phase_ppi_profile(ds):
+    """TeacherNet (``supervised``) and StudentNet in ``kd`` (a TeacherNet of
+    random weights online) at the PPI shape: after a warm-up epoch and
+    evaluation, the steady time of three train epochs and of one evaluation
+    of the 24 graphs (host clock), then one train epoch under torch.profiler
+    with the port-kernel launches it makes, then three train epochs again
+    (what the profiler leaves behind). The idle share is taken against the
+    steady epoch, which the profiler does not slow."""
+    from efficient_gnns_tpu_torch.models import ppi_student, ppi_teacher
+    from efficient_gnns_tpu_torch.train import DistillConfig, PPITrainer
+
+    counters = _counters()
+    trainers = {}
+    for tag, training, student in (("ppi_teacher", "supervised", False),
+                                   ("ppi_student_kd", "kd", True)):
+        model = (ppi_student if student else ppi_teacher)(ds.feat_dim, ds.num_labels,
+                                                           device=DEVICE)
+        teacher = ppi_teacher(ds.feat_dim, ds.num_labels, seed=1, device=DEVICE)
+        trainer = PPITrainer(DistillConfig(training=training, lr=0.005, alpha=0.5, kd_T=1.0),
+                             ds, model, teacher=teacher, device=DEVICE)
+        trainer.train_epoch(1)  # warm-up: the first use of each graph checks its splits
+        trainer.evaluate_all()
+        ms = _steady_ms(lambda: [trainer.train_epoch(e) for e in (2, 3, 4)], 3)
+        eval_ms = _steady_ms(trainer.evaluate_all, 1)
+        trainers[tag] = trainer, ms
+        print(f"{tag} steady train epoch (20 steps, 3 warm epochs, host clock, before any "
+              f"PPI profile): {ms:.2f} ms; one evaluation of the 24 graphs: {eval_ms:.2f} ms",
+              flush=True)
+    for tag, (trainer, ms) in trainers.items():
+        for c in counters.values():
+            c.launches = 0
+        busy = _profile(tag, lambda: trainer.train_epoch(5), 1,
+                        also=("split_segment_sum", "thin_reduce", "tile_rows_thin",
+                              "split_sddmm"))
+        print(f"{tag}: port-kernel launches in the profiled train epoch "
+              f"{ {k: c.launches for k, c in counters.items()} }; device busy {busy:.1f} ms "
+              f"of the steady {ms:.2f} ms epoch: {100 * (1 - busy / ms):.1f}% idle", flush=True)
+        after = _steady_ms(lambda: [trainer.train_epoch(e) for e in (6, 7, 8)], 3)
+        print(f"{tag} steady train epoch after the profile: {after:.2f} ms", flush=True)
+    del trainers
+
+
 PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
           "thin_group_sweep", "reference", "teacher_reference", "hub_attention",
           "sign_reference", "slice", "teacher_slice", "sign_slice", "checkpoint",
-          "ogbn_cache", "runtime_spmm", "teacher_profile", "student_profile", "sign_profile")
+          "ogbn_cache", "runtime_spmm", "teacher_profile", "student_profile", "sign_profile",
+          "ppi_kernels", "ppi_reference", "ppi_slice", "ppi_profile")
 
 
 def main(argv=None) -> int:
@@ -1678,6 +1964,22 @@ def main(argv=None) -> int:
     rt_launches, rt_failures = run("runtime_spmm", phase_runtime_spmm, ds.graph) or ({}, [])
     failures += (slice_failures + teacher_failures + sign_failures + ck_failures
                  + ogbn_failures + rt_failures)
+    failures += run("ppi_reference", phase_ppi_reference) or []
+    ppi_launches = {}
+    if chosen & {"ppi_kernels", "ppi_slice", "ppi_profile"}:
+        from efficient_gnns_tpu_torch.data import synthetic_ppi_dataset
+
+        t0 = time.time()
+        ppi = synthetic_ppi_dataset(**PPI_SHAPE, seed=42)
+        print(f"PPI-shaped dataset built in {time.time() - t0:.1f} s: "
+              f"{sum(g.num_nodes for g in ppi.train)} train nodes, "
+              f"{sum(g.graph.n_edge for g in ppi.train)} train edges", flush=True)
+        recs, fails = run("ppi_kernels", phase_ppi_kernels, ppi) or ([], [])
+        records, failures = records + recs, failures + fails
+        ppi_launches, fails = run("ppi_slice", phase_ppi_slice, ppi) or ({}, [])
+        failures += fails
+        run("ppi_profile", phase_ppi_profile, ppi)
+        del ppi
     run("student_profile", phase_student_profile, ds)
     run("sign_profile", phase_sign_profile, ds)
     if "teacher_profile" in chosen:
@@ -1693,6 +1995,8 @@ def main(argv=None) -> int:
     launches["K1"] = (k1_launches + launches.get("K1", 0) + rt_launches.get("K1", 0)
                       + sign_launches + ck_launches + ogbn_launches)
     launches["K3"] = launches.get("K3", 0) + rt_launches.get("K3", 0)
+    for k, n in ppi_launches.items():
+        launches[k] = launches.get(k, 0) + n
     for r in records:  # a shape that the paths never launch counts 0
         on_path = r.get("on_main_path", True)
         r["launches"] = launches.get(r["name"].split()[0], 0) if on_path else 0

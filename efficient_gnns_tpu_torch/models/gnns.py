@@ -1,6 +1,6 @@
 """The GNN model zoo (counterpart of ``efficient_gnns_tpu/models/gnns.py``;
-the GCN and SAGE students, their projection heads, the GAT teacher and the
-graph-agnostic SIGN student).
+the GCN and SAGE students, their projection heads, the GAT teacher, the
+graph-agnostic SIGN student and the PPI GATs).
 
 Every model's ``forward`` returns ``(logits, out_feat)``, ``out_feat`` being
 the representation used by feature-space distillation. Train or eval mode is
@@ -13,15 +13,18 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.models.layers import (
+    Dense,
     DGLGATConv,
     ElementWiseLinear,
     FeedForwardNet,
     GCNConv,
     MaskedBatchNorm,
+    PyGGATConv,
     SAGEConv,
     dropout,
     prelu,
@@ -210,3 +213,60 @@ class SIGN(nn.Module):
         h = prelu(torch.cat(hidden, -1), self.prelu_alpha)
         out_feat = dropout(h, self.dropout, generator) if self.training else h
         return self.project(out_feat, generator), out_feat
+
+
+class PPIGAT(nn.Module):
+    """The PPI GAT with parallel skip linears (reference
+    ``ppi_pyg/gnn.py:86-117``; TeacherNet and StudentNet are configurations
+    of it, :func:`ppi_teacher` and :func:`ppi_student`). Each of the first
+    ``num_layers - 1`` layers is ``elu(convs[i](h) + lins[i](h))``, a
+    :class:`PyGGATConv` of ``heads`` heads of ``hidden`` (concatenated)
+    beside a :class:`Dense` skip, then dropout; the last conv takes the mean
+    over ``final_heads`` heads (default ``heads``), plus its skip. ``out_feat``
+    is the last hidden activation, ``feat_dim = hidden * heads`` wide.
+
+    Weights are initialized from ``torch.Generator().manual_seed(seed)`` on
+    the CPU, then moved to ``device``.
+    """
+
+    def __init__(self, in_feats: int, hidden: int, out_feats: int, num_layers: int,
+                 heads: int = 4, final_heads: Optional[int] = None, dropout: float = 0.0,
+                 *, seed: int = 0, device="cuda"):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.feat_dim = hidden * heads
+        dims = [in_feats] + [self.feat_dim] * (num_layers - 1)
+        convs, lins = [], []
+        for i in range(num_layers):
+            last = i == num_layers - 1
+            convs.append(PyGGATConv(dims[i], out_feats if last else hidden,
+                                    num_heads=(final_heads or heads) if last else heads,
+                                    concat=not last, generator=gen, device=device))
+            lins.append(Dense(dims[i], out_feats if last else self.feat_dim, generator=gen,
+                              device=device))
+        self.convs, self.lins = nn.ModuleList(convs), nn.ModuleList(lins)
+        self.dropout = dropout
+
+    def forward(self, graph: Graph, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        h, out_feat = x, None
+        for conv, lin in zip(self.convs[:-1], self.lins[:-1]):
+            h = F.elu(conv(graph, h, generator) + lin(h))
+            if self.training:
+                h = dropout(h, self.dropout, generator)
+            out_feat = h
+        return self.convs[-1](graph, h, generator) + self.lins[-1](h), out_feat
+
+
+def ppi_teacher(in_feats: int, num_classes: int, *, seed: int = 0, device="cuda") -> PPIGAT:
+    """TeacherNet: 3 layers, 4 heads x 256, a final 6-head mean
+    (``ppi_pyg/gnn.py:24-47``); ``out_feat`` is 1,024 wide."""
+    return PPIGAT(in_feats, 256, num_classes, 3, heads=4, final_heads=6, seed=seed,
+                  device=device)
+
+
+def ppi_student(in_feats: int, num_classes: int, *, seed: int = 0, device="cuda") -> PPIGAT:
+    """StudentNet: 5 layers, 2 heads x 68, a final 2-head mean
+    (``ppi_pyg/gnn.py:50-83``); ``out_feat`` is 136 wide."""
+    return PPIGAT(in_feats, 68, num_classes, 5, heads=2, final_heads=2, seed=seed,
+                  device=device)

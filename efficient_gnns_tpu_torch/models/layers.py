@@ -1,7 +1,7 @@
 """Graph convolution layers (counterpart of
 ``efficient_gnns_tpu/models/layers.py``; ``GCNConv``, ``SAGEConv``,
-``MaskedBatchNorm``, ``DGLGATConv``, ``ElementWiseLinear`` and SIGN's
-``FeedForwardNet``).
+``MaskedBatchNorm``, ``DGLGATConv``, ``PyGGATConv``, ``ElementWiseLinear``,
+SIGN's ``FeedForwardNet`` and flax's ``Dense``).
 
 Parameters are created on the CPU and initialized from an explicit
 ``torch.Generator``, then moved to ``device``, so one seed gives the same
@@ -71,6 +71,20 @@ def xavier_uniform(in_features: int, features: int, generator: torch.Generator,
     weight = torch.empty(in_features, features)
     nn.init.xavier_uniform_(weight, gain=gain, generator=generator)
     return nn.Parameter(weight.to(device))
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ weight + bias``, the kernel ``[in, out]``
+    xavier-uniform from ``generator``, the bias zero."""
+
+    def __init__(self, in_features: int, features: int, *, generator: torch.Generator,
+                 device="cuda"):
+        super().__init__()
+        self.weight = xavier_uniform(in_features, features, generator, device)
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.weight + self.bias
 
 
 class GCNConv(nn.Module):
@@ -210,6 +224,49 @@ class DGLGATConv(nn.Module):
         if self.activation is not None:
             rst = self.activation(rst)
         return rst  # [N, H, D]
+
+
+class PyGGATConv(nn.Module):
+    """PyG ``GATConv`` semantics (the PPI models, ``ppi_pyg/gnn.py:24-117``):
+    LeakyReLU(``negative_slope``) attention with per-head source and
+    destination score vectors ``att_src`` / ``att_dst`` ``[D, H]``, attention
+    dropout, the heads concatenated (or their mean when ``concat=False``) and
+    an output bias. ``weight`` is flax ``Dense_0`` ``[in, H*D]`` (no bias);
+    every parameter but the zero bias is xavier-uniform from ``generator``.
+
+    The attention is :func:`~efficient_gnns_tpu_torch.ops.attention.gat_attention`,
+    the JAX layer's fused branch and the same function as its XLA branch
+    (``sddmm_add`` -> leaky ReLU -> ``edge_softmax`` -> dropout ->
+    ``spmm_heads``). Attention dropout draws its mask from the ``generator``
+    passed to ``forward``. PyG adds self loops inside the conv; the PPI
+    graphs carry them (``data/ppi.py``).
+    """
+
+    def __init__(self, in_feats: int, out_feats: int, num_heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2, dropout: float = 0.0,
+                 *, generator: torch.Generator, device="cuda"):
+        super().__init__()
+        h, d = num_heads, out_feats
+        self.num_heads, self.out_feats, self.concat = h, d, concat
+        self.negative_slope, self.dropout = negative_slope, dropout
+        self.weight = xavier_uniform(in_feats, h * d, generator, device)
+        self.att_src = xavier_uniform(d, h, generator, device)
+        self.att_dst = xavier_uniform(d, h, generator, device)
+        self.bias = nn.Parameter(torch.zeros(h * d if concat else d, device=device))
+
+    def forward(self, graph: Graph, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h, d = self.num_heads, self.out_feats
+        feat = (x @ self.weight).view(-1, h, d)
+        el = torch.einsum("nhd,dh->nh", feat.float(), self.att_src)
+        er = torch.einsum("nhd,dh->nh", feat.float(), self.att_dst)
+        attn = None
+        if self.training and self.dropout > 0:
+            _, attn = sample_edge_masks(graph, generator, 0.0, self.dropout, h)
+        rst = gat_attention(graph, feat, el, er, negative_slope=self.negative_slope,
+                            attn_keep=attn, attn_keep_prob=1.0 - self.dropout)
+        rst = rst.reshape(-1, h * d) if self.concat else rst.mean(1)
+        return rst + self.bias.to(rst.dtype)
 
 
 class ElementWiseLinear(nn.Module):

@@ -5,10 +5,11 @@ nested dicts of NumPy arrays (e.g. ``jax.tree.map(np.asarray, params)``,
 converted by the caller) and returns a ``state_dict`` for the port's model or
 projection head. A flax ``Dense`` kernel is ``[in, out]``; the port keeps
 that layout (its ``GCNConv.weight``, ``SAGEConv.weight`` / ``root_weight``,
-the projection heads' ``weight`` / ``lin_weight``, ``DGLGATConv.fc_weight``
-/ ``res_weight`` and ``FeedForwardNet.weights`` are applied as ``x @
-weight``), so kernels are copied, not transposed; ``attn_l`` / ``attn_r``
-keep their ``[D, H]`` layout too.
+``PyGGATConv.weight``, ``Dense.weight``, the projection heads' ``weight`` /
+``lin_weight``, ``DGLGATConv.fc_weight`` / ``res_weight`` and
+``FeedForwardNet.weights`` are applied as ``x @ weight``), so kernels are
+copied, not transposed; ``attn_l`` / ``attn_r`` and ``att_src`` /
+``att_dst`` keep their ``[D, H]`` layout too.
 """
 
 from __future__ import annotations
@@ -35,6 +36,10 @@ _PARAM_RULES = (
     (re.compile(r"lin/bias"), "lin_bias"),
     (re.compile(r"MaskedBatchNorm_0/scale"), "bn.scale"),
     (re.compile(r"MaskedBatchNorm_0/bias"), "bn.bias"),
+    # PPIGAT (its convs' kernel and bias take the GCN rules above)
+    (re.compile(r"conv_(\d+)/att_(src|dst)"), "convs.{}.att_{}"),
+    (re.compile(r"lin_(\d+)/kernel"), "lins.{}.weight"),
+    (re.compile(r"lin_(\d+)/bias"), "lins.{}.bias"),
     # GATTeacher
     (re.compile(r"gat_(\d+)/Dense_0/kernel"), "convs.{}.fc_weight"),
     (re.compile(r"gat_(\d+)/Dense_1/kernel"), "convs.{}.res_weight"),
@@ -87,8 +92,8 @@ def _rename(flat: Dict[str, np.ndarray], rules) -> Dict[str, torch.Tensor]:
 
 
 def from_jax_params(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """``state_dict`` for the port's ``GCN``, ``SAGE``, ``GATTeacher``, ``SIGN`` or a
-    projection head (``ProjectionLinear``, ``ProjectionMLP``,
+    """``state_dict`` for the port's ``GCN``, ``SAGE``, ``GATTeacher``, ``SIGN``,
+    ``PPIGAT`` or a projection head (``ProjectionLinear``, ``ProjectionMLP``,
     ``ProjectionGCD``) from the JAX module's ``params`` and ``batch_stats``."""
     state = _rename(_flatten(params), _PARAM_RULES)
     state.update(_rename(_flatten(batch_stats), _STAT_RULES))

@@ -235,3 +235,64 @@ def test_sign_trainer_epoch_on_card_matches_cpu(rng, cuda_device, mode, kd_and_a
         results[str(dev)] = [tr.train_epoch(e)["loss"] for e in (1, 2)] + list(tr.evaluate())
     np.testing.assert_allclose(results[str(cuda_device)][:2], results["cpu"][:2], rtol=1e-4)
     np.testing.assert_allclose(results[str(cuda_device)][2:], results["cpu"][2:], atol=0.02)
+
+
+@pytest.mark.parametrize("heads,d", [(6, 121), (2, 121), (4, 256), (2, 68)])
+def test_attention_kernels_without_long_rows_on_card(rng, cuda_device, heads, d):
+    # the PPI graphs' shape: no row above the split threshold, so the split
+    # is empty (num_chunks = num_long = 0, an empty partial scratch, no second
+    # pass), padding nodes with empty rows, and D = 121 (odd: one float a load)
+    from efficient_gnns_tpu_torch.data import synthetic_ppi_dataset
+
+    g = synthetic_ppi_dataset(n_train=1, n_valid=0, n_test=0, min_nodes=300,
+                              max_nodes=400, avg_deg=14, seed=3).train[0].graph
+    assert g.row_split.num_chunks == g.row_split.num_long == g.t_row_split.num_long == 0
+    g = g.to(cuda_device)
+    n = g.num_nodes
+    x = torch.randn(n, heads * d, device=cuda_device)
+    gg = torch.randn(n, heads * d, device=cuda_device)
+    w = torch.randn(g.num_edges_padded, heads, device=cuda_device)
+    vals = torch.randn(n, heads, device=cuda_device)
+    close = dict(rtol=1e-5, atol=1e-4)
+    for src, dst, ro, split in ((g.senders, g.receivers, g.row_offsets, g.row_split),
+                                (g.t_senders, g.t_receivers, g.t_row_offsets,
+                                 g.t_row_split)):
+        got = csr_segment_sum_heads(x, w, src, ro, split)
+        torch.testing.assert_close(got, csr_segment_sum_heads_plain(x, w, src, ro), **close)
+        assert torch.equal(got, csr_segment_sum_heads(x, w, src, ro, split))
+        got = csr_sddmm_heads(gg, x, src, ro, heads, split)
+        torch.testing.assert_close(got, csr_sddmm_heads_plain(gg, x, src, ro, heads), **close)
+        assert torch.equal(got, csr_sddmm_heads(gg, x, src, ro, heads, split))
+        for fn, op in ((csr_segment_sum_thin, "sum"), (csr_segment_max_thin, "max")):
+            got = fn(w, ro, split)
+            want = csr_segment_reduce_thin_plain(w, ro, op)
+            if op == "sum":
+                torch.testing.assert_close(got, want, **close)
+            else:
+                assert torch.equal(got, want)
+            assert torch.equal(got, fn(w, ro, split))
+        got = csr_tile_rows_thin(vals, dst, ro)
+        assert torch.equal(got, csr_tile_rows_thin_plain(vals, dst, ro))
+        assert torch.equal(got, csr_tile_rows_thin(vals, dst, ro))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mode,kd_and_aux", [("supervised", False), ("nce", True)])
+def test_ppi_trainer_epoch_on_card_matches_cpu(cuda_device, mode, kd_and_aux):
+    from efficient_gnns_tpu_torch.data import synthetic_ppi_dataset
+    from efficient_gnns_tpu_torch.models import PPIGAT
+    from efficient_gnns_tpu_torch.train import DistillConfig, PPITrainer
+
+    ds = synthetic_ppi_dataset(n_train=3, n_valid=1, n_test=1, min_nodes=40, max_nodes=80,
+                               avg_deg=5, feat_dim=16, num_labels=12, seed=0)
+    cfg = DistillConfig(training=mode, kd_and_aux=kd_and_aux, lr=0.005, alpha=0.5,
+                        kd_T=1.0, beta=1.0, max_samples=128, proj_dim=8)
+    results = {}
+    for dev in ("cpu", cuda_device):  # max_samples at the padded rows: no row subset
+        teacher = PPIGAT(16, 12, 12, 2, heads=2, seed=1, device=dev)
+        tr = PPITrainer(cfg, ds, PPIGAT(16, 8, 12, 2, heads=2, seed=0, device=dev),
+                        teacher=teacher, teacher_feat_dim=24, seed=0, device=dev)
+        results[str(dev)] = ([tr.train_epoch(e)["loss"] for e in (1, 2)]
+                             + list(tr.evaluate_all()))
+    np.testing.assert_allclose(results[str(cuda_device)][:2], results["cpu"][:2], rtol=1e-4)
+    np.testing.assert_allclose(results[str(cuda_device)][2:], results["cpu"][2:], atol=0.02)

@@ -37,7 +37,7 @@ def test_port_imports_without_jax():
                  "train.config", "train.node_trainer", "graphs.hub_dense",
                  "ops.hub_attention", "ops.dispatch", "cli.sign", "data.ogb",
                  "sampling.minibatch", "sampling.hop_precompute", "train.checkpoint",
-                 "train.sign_trainer"):
+                 "train.sign_trainer", "data.ppi", "train.ppi_trainer", "cli.ppi"):
         assert f"efficient_gnns_tpu_torch.{name}" in modules, name
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
