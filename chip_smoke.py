@@ -108,7 +108,26 @@ it imports nothing of JAX. Phases, each of which must pass:
     ``nce --kd_and_aux`` from its checkpoint, 3 epochs each, every kernel's
     counter read around each run;
 22. a profile of one TeacherNet and one StudentNet ``kd`` train epoch at the
-    PPI shape, with the steady epoch and evaluation times.
+    PPI shape, with the steady epoch and evaluation times;
+23. small-input reference: the MAG trainer on the card against the same
+    trainer on the CPU (``supervised``, ``kd``, ``nce``, ``lpw``, each on the
+    typed square layout and on the masked path) and its layer-wise logits;
+24. the MAG slice: the synthetic ogbn-mag at ``MAG_CACHE_PAPERS`` papers
+    written as ogbn-mag's raw cache and read back by ``data/mag.py``, then
+    ``cli.mag`` trains the 3 x 512 R-GCN teacher (``--save_ckpt``,
+    ``--time_steps``) and the 2 x 32 student from its checkpoint in ``kd``
+    and ``nce --kd_and_aux``, 2 epochs of 30 GraphSAINT steps each, K1's
+    launches checked against ``_mag_launches``; the checkpoint reloaded;
+25. K1 at the MAG shapes on GraphSAINT samples of the full-shape synthetic
+    ogbn-mag (1,939,743 nodes, 22,322,316 edges): the typed square graph
+    forward into its node budget (``dst_rows``) and backward over its
+    transpose at F = 512, 349 (teacher) and 32, 349 (student), the masked
+    path's 0/1 weights at F = 128 and 1, one layer-wise chunk at F = 128 and
+    512 (``... mag ...`` records), with one sample's host time by function;
+26. the full-shape MAG epochs through ``MagTrainer``: the teacher and the
+    student ``kd``, a steady epoch, the prefetch thread's host time a
+    sample, one layer-wise evaluation, one profiled epoch (busy and idle
+    share), the device-only step and the peak device memory.
 
 ``--only a,b`` runs the named phases alone (see ``main``). The last lines
 are the kernels' JSON record, the ``nvidia-smi`` line and
@@ -118,8 +137,10 @@ are the kernels' JSON record, the ``nvidia-smi`` line and
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
 import os
+import pstats
 import re
 import shutil
 import subprocess
@@ -1891,11 +1912,447 @@ def phase_ppi_profile(ds):
     del trainers
 
 
+# the ogbn-mag workload (mag_pyg/): ogbn-mag's node counts, 128 paper
+# features, 349 classes; synthetic relations (3 writes an author, 2 topics a
+# paper, 7 cites a paper) give 22,322,316 edges after the 7-relation
+# augmentation. GraphSAINT: 20,000 roots, walks of 3 (teacher) and 2 (student)
+MAG_SHAPE = dict(n_paper=736389, n_author=1134649, n_inst=8740, n_field=59965, feat_dim=128,
+                 num_classes=349, avg_cites=7)
+MAG_TEACHER = ["--num_layers", "3", "--hidden_channels", "512", "--training", "supervised"]
+MAG_AUX_NCE = ["--kd_and_aux", "--beta", "0.1", "--nce_T", "0.075", "--max_samples",
+               "24576"]  # experiments/mag.json, graph_saint-aux/nce
+MAG_EPOCHS = 2
+MAG_STEPS = 30
+MAG_TIME_STEPS = 5
+# the raw cache is written and read as CSV text (gzip + np.savetxt / np.loadtxt):
+# at full shape that is over 90 s, so it holds a cut of the papers, every
+# other count cut in the same ratio; the full shape trains in mag_profile
+MAG_CACHE_PAPERS = 100_000
+MAG_ROOT = os.path.join(OUT_DIR, "mag_cache")
+MAG_CKPT = os.path.join(OUT_DIR, "mag_ckpt")
+
+
+def _mag_chunks(num_nodes):
+    """Chunks of the layer-wise evaluation (``MagTrainer``'s chunk rule)."""
+    c = min(16384, max(256, (num_nodes // 8) // 256 * 256))
+    return -(-num_nodes // c)
+
+
+def _mag_launches(layers, teacher_layers=0, chunks=119, epochs=MAG_EPOCHS, steps=MAG_STEPS,
+                  time_steps=0):
+    """K1 launches of a typed-square MAG run, from the code: a step runs each
+    student layer's typed spmm forward and backward and each layer of the
+    online teacher forward; the layer-wise evaluation after each epoch runs
+    one K1 a chunk a layer; ``--time_steps`` takes one warm step and N more."""
+    step = 2 * layers + teacher_layers
+    return epochs * (steps * step + layers * chunks) + (time_steps + (1 if time_steps else 0)) * step
+
+
+def _mag_dataset(n_paper=MAG_SHAPE["n_paper"], seed=42):
+    """The synthetic ogbn-mag at ``n_paper`` papers, every other count in the
+    same ratio to ogbn-mag's."""
+    from efficient_gnns_tpu_torch.data import synthetic_mag_dataset
+
+    k = n_paper / MAG_SHAPE["n_paper"]
+    return synthetic_mag_dataset(**{**MAG_SHAPE, "n_paper": n_paper,
+                                    "n_author": round(MAG_SHAPE["n_author"] * k),
+                                    "n_inst": round(MAG_SHAPE["n_inst"] * k),
+                                    "n_field": round(MAG_SHAPE["n_field"] * k)}, seed=seed)
+
+
+def _k1_case(name, inp, src, ro, w, split, dense_shape, on_main_path=True, extra=None):
+    """K1 on ``inp`` against its plain version (max error against 1e-5 +
+    1e-5 * sum |terms| per output, the same bits over two launches), its time,
+    the plain version's, one cuSPARSE CSR matmul's and its bound. The bound
+    counts what this data needs: the weights of every edge, the senders and
+    the distinct input rows of the edges of non-zero weight, every output
+    row once. Returns (record, failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum, csr_segment_sum_plain
+
+    e = int(ro[-1])
+    rows, f = ro.numel() - 1, inp.shape[1]
+    got = csr_segment_sum(inp, src, ro, w, split)
+    want = csr_segment_sum_plain(inp, src, ro, w)
+    abs_sum = csr_segment_sum_plain(inp.abs(), src, ro, w.abs())
+    diff = (got - want).abs()
+    err = float(diff.max())
+    ok = bool((diff <= TOL + TOL * abs_sum).all()) and got.shape == (rows, f)
+    same_bits = torch.equal(got, csr_segment_sum(inp, src, ro, w, split))
+    ms = _time_ms(lambda: csr_segment_sum(inp, src, ro, w, split), 20)
+    plain_ms = _time_ms(lambda: csr_segment_sum_plain(inp, src, ro, w), 5)
+    a = torch.sparse_csr_tensor(ro, src[:e], w[:e], dense_shape)
+    library_ms = _library_ms("cuSPARSE CSR matmul", lambda: a @ inp)
+    live = w[:e] != 0
+    e_live = int(live.sum())
+    in_rows = int(torch.unique(src[:e][live]).numel())
+    n_bytes = e * 4 + e_live * 4 + in_rows * f * inp.element_size() + rows * f * 4 + (rows + 1) * 4
+    bound_ms, bound_by = _bound(n_bytes, 2 * e_live * f)
+    record = {"name": name, "route": "cuda",
+              "source": "efficient_gnns_tpu_torch/ops/cuda/csrc/segment_sum.cu",
+              "replaces": "efficient_gnns_tpu/ops/pallas/segment_matmul.py:162",
+              "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+              "on_main_path": on_main_path,
+              "shape": {"rows": rows, "E": e, "E_live": e_live, "F": f, "in_rows": in_rows,
+                        **(extra or {})}}
+    print(f"  {name}: rows={rows} E={e} live={e_live} input rows read={in_rows} "
+          f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms} bound_ms={bound_ms:.4f} "
+          f"({bound_by}) two launches {'equal' if same_bits else 'DIFFER'}", flush=True)
+    failures = [] if ok else [name]
+    if not same_bits:
+        failures.append(f"{name}: not the same bits twice")
+    return record, failures
+
+
+def phase_mag_kernels(ds):
+    """K1 at the MAG paths' shapes on a teacher-shaped (walks of 3) and a
+    student-shaped (walks of 2) GraphSAINT sample of the full-shape data:
+    the typed square graph forward into its ``node_budget`` rows
+    (``dst_rows``) and backward over its transpose, at the teacher's F = 512
+    and 349 and the student's F = 32 and 349; the masked fallback's K1 (0/1
+    weights of the cites relation) at F = 128 and 1; one chunk of the
+    layer-wise evaluation at F = 128 and 512. Returns (records, failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.native import host
+    from efficient_gnns_tpu_torch.sampling import GraphSaintRandomWalkSampler
+    from efficient_gnns_tpu_torch.train import RGCNLayerwiseInference
+    from efficient_gnns_tpu_torch.train.mag_trainer import upload_bytes
+
+    g = ds.grouped
+    n = g.node_type.shape[0]
+    nr = ds.num_edge_types
+    cites = g.key2int[("paper", "cites", "paper")]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    records, failures = [], []
+    print(f"mag kernels: N={n} E={g.edge_index.shape[1]} walker={host.walker()}", flush=True)
+    for tag, walk, widths in (("teacher", 3, (512, 349)), ("student", 2, (32, 349))):
+        t0 = time.perf_counter()
+        sampler = GraphSaintRandomWalkSampler(
+            g.edge_index[0], g.edge_index[1], n, batch_size=20000, walk_length=walk,
+            edge_type=g.edge_type, num_edge_types=nr, seed=0, typed_square=True)
+        init_s = time.perf_counter() - t0
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        sub = sampler.sample()
+        prof.disable()
+        sample_ms = (time.perf_counter() - t0) * 1e3
+        top = pstats.Stats(prof).sort_stats("tottime")
+        print(f"mag {tag} sample, host functions by own time (cProfile): " + ", ".join(
+            f"{fn[2]} {st[2] * 1e3:.1f} ms" for fn, st in sorted(
+                top.stats.items(), key=lambda kv: -kv[1][2])[:8]), flush=True)
+        t = sub.typed_graph.to(DEVICE)
+        nb = t.max_dst
+        longest = [int((o[1:] - o[:-1]).max()) for o in (t.row_offsets, t.t_row_offsets)]
+        print(f"mag {tag} sample: {sub.num_nodes} nodes (budget {nb}), {t.n_edge} edges "
+              f"(E_pad {t.num_edges_padded}), longest row fwd / bwd {longest}, long rows "
+              f"{[t.row_split.num_long, t.t_row_split.num_long]}; sampler init {init_s:.1f} s, "
+              f"one sample {sample_ms:.0f} ms on the host (under cProfile), upload {upload_bytes(sub)} bytes "
+              f"(both graphs)", flush=True)
+        for f in widths:
+            x = torch.randn(nr * nb, f, generator=gen, device=DEVICE)
+            gy = torch.randn(nb, f, generator=gen, device=DEVICE)
+            for direction, args, shape in (
+                    ("fwd", (x, t.senders, t.row_offsets[:nb + 1], t.edge_weight,
+                             t.dst_row_split), (nb, nr * nb)),
+                    ("bwd", (gy, t.t_senders, t.t_row_offsets, t.t_edge_weight,
+                             t.t_row_split), (nr * nb, nb))):
+                rec, fails = _k1_case(f"K1 csr_segment_sum mag {tag} typed {direction} F={f}",
+                                      *args, shape, extra={"node_budget": nb})
+                records.append(rec)
+                failures += fails
+        if tag == "teacher":  # the masked fallback (--no_typed_square) on this sample
+            m = sub.graph.to(DEVICE)
+            sel = (m.edge_type == cites).float()
+            for f in (128, 1):
+                x = torch.randn(nb, f, generator=gen, device=DEVICE)
+                rec, fails = _k1_case(f"K1 csr_segment_sum mag masked fwd F={f}", x, m.senders,
+                                      m.row_offsets, sel, m.row_split, (nb, nb),
+                                      on_main_path=False)
+                records.append(rec)
+                failures += fails
+            del m
+        del t, sub, sampler
+    t0 = time.perf_counter()
+    lw = RGCNLayerwiseInference(g.edge_index[0], g.edge_index[1], g.edge_type, n, nr,
+                                chunk_nodes=min(16384, max(256, (n // 8) // 256 * 256)),
+                                device=DEVICE)
+    print(f"mag layer-wise: {lw.n_chunks} chunks of {lw.chunk_nodes} nodes, built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    snd, wgt, ro, split = lw.chunks[0]
+    for f in (128, 512):
+        h = torch.randn(n, f, generator=gen, device=DEVICE)
+        rec, fails = _k1_case(f"K1 csr_segment_sum mag layerwise chunk F={f}", h, snd, ro, wgt,
+                              split, (ro.numel() - 1, n), extra={"chunks": lw.n_chunks})
+        records.append(rec)
+        failures += fails
+        del h
+    del lw
+    torch.cuda.synchronize()
+    return records, failures
+
+
+def phase_mag_reference():
+    """``MagTrainer`` on the card against the same trainer on the CPU (which
+    the tests hold against the JAX package), same start (the modules are
+    initialised on the CPU from their seeds), dropout 0, ``max_samples``
+    above the node budget (no row subset), 2 epochs of 3 steps on a small
+    synthetic MAG: ``supervised``, ``kd``, ``nce``, ``lpw``, each on the typed
+    square layout and with ``--no_typed_square``. Per-epoch losses within
+    rtol 1e-4; the layer-wise logits of the trained students within rtol 1e-4
+    / atol 1e-4."""
+    import numpy as np
+    import torch
+
+    from efficient_gnns_tpu_torch.data import synthetic_mag_dataset
+    from efficient_gnns_tpu_torch.train import DistillConfig, MagTrainer
+
+    ds = synthetic_mag_dataset(n_paper=400, n_author=200, n_inst=10, n_field=40, feat_dim=32,
+                               num_classes=8, seed=5)
+    failures = []
+    for mode in ("supervised", "kd", "nce", "lpw"):
+        for typed in (True, False):
+            hist, logits = {}, {}
+            for device in ("cpu", DEVICE):
+                tr = MagTrainer(DistillConfig(training=mode, hidden=16, num_layers=2,
+                                              dropout=0.0, lr=0.01, beta=1.0,
+                                              max_samples=4096, proj_dim=16),
+                                ds, batch_size=64, num_steps=3, teacher_hidden=24,
+                                teacher_layers=3, typed_square=typed, device=device)
+                try:
+                    hist[device] = np.array([[m["loss"], m["loss_cls"], m["loss_aux"]]
+                                             for m in (tr.train_epoch(e) for e in (1, 2))])
+                    logits[device] = tr.logits().cpu()
+                finally:
+                    tr.close()
+            got, want = hist[DEVICE], hist["cpu"]
+            lerr = float((logits[DEVICE] - logits["cpu"]).abs().max())
+            tag = f"{mode} {'typed' if typed else 'masked'}"
+            print(f"mag reference {tag}: cuda vs cpu trainer, 2 epochs, losses "
+                  f"{got[:, 0].tolist()} max_abs_err={float(np.abs(got - want).max()):.3e}; "
+                  f"layer-wise logits max_abs_err={lerr:.3e}", flush=True)
+            if not (np.isfinite(got).all() and np.allclose(got, want, rtol=1e-4, atol=1e-6)):
+                failures.append(f"mag reference {tag}: the card's losses disagree with the CPU")
+            if not torch.allclose(logits[DEVICE], logits["cpu"], rtol=1e-4, atol=1e-4):
+                failures.append(f"mag reference {tag}: the card's logits disagree with the CPU")
+    return failures
+
+
+def _write_mag_cache(root, ds):
+    """``ds`` as ogbn-mag's raw cache: the four relations of the data (not
+    the reverse ones that the loader adds), local ids, one directory each;
+    the node counts; paper features, labels and splits."""
+    import gzip
+
+    import numpy as np
+
+    from efficient_gnns_tpu_torch.data.mag import MAG_RELATIONS, mag_raw_files
+
+    g = ds.grouped
+    files = mag_raw_files(root)
+    for rel in MAG_RELATIONS:
+        src, _, dst = rel
+        os.makedirs(os.path.dirname(files["___".join(rel)]), exist_ok=True)
+        ei = g.edge_index[:, g.edge_type == g.key2int[rel]]
+        off = np.array([[g.local2global[src][0]], [g.local2global[dst][0]]])
+        _write_csv_gz(files["___".join(rel)], (ei - off).T, "%d")
+    names = sorted(ds.num_nodes_dict)
+    with gzip.open(files["num_nodes"], "wt", compresslevel=1) as f:
+        f.write(",".join(names) + "\n" + ",".join(str(ds.num_nodes_dict[k]) for k in names)
+                + "\n")
+    for key, arr, fmt in (("feat", ds.x_paper, "%.6f"), ("label", ds.y_paper[:, None], "%d")):
+        os.makedirs(os.path.dirname(files[key]), exist_ok=True)
+        _write_csv_gz(files[key], arr, fmt)
+    for k, v in ds.split_idx.items():
+        os.makedirs(os.path.dirname(files[k]), exist_ok=True)
+        _write_csv_gz(files[k], v[:, None], "%d")
+
+
+def _mag_run(tag, argv, expected):
+    """One run of ``cli.mag`` on the raw cache with every kernel's counter
+    read around it; returns (summary, launches by kernel, failures)."""
+    import math
+
+    from efficient_gnns_tpu_torch.cli import mag
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    summary = mag.main(["--dataset", "ogbn-mag", "--data_root", MAG_ROOT, "--epochs",
+                        str(MAG_EPOCHS), "--runs", "1", "--num_steps", str(MAG_STEPS),
+                        "--batch_size", "20000", "--out_dir", OUT_DIR, "--expt_name",
+                        "chip_smoke_mag", "--device", DEVICE, *argv])
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {k: 0 for k in counters}
+    want["K1"] = expected
+    secs = [v for v in summary["epoch_seconds"]["run0"] if not isinstance(v, dict)]
+    steps = [v["device_step_ms"] for v in summary["epoch_seconds"]["run0"]
+             if isinstance(v, dict)]
+    losses = summary["losses"]["run0"]
+    print(f"mag slice {tag}: launches {launches} (expected K1 {expected} and nothing else); "
+          f"epochs (30 steps, host clock) {[round(v, 2) for v in secs]} s; device-only step "
+          f"{[round(v, 2) for v in steps]} ms; losses {[round(v, 4) for v in losses]}; "
+          f"train/valid/test by epoch "
+          f"{[[round(a, 4) for a in accs] for accs in summary['accuracies']['run0']]}",
+          flush=True)
+    failures = []
+    if launches != want:
+        failures.append(f"mag slice {tag}: launches {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        failures.append(f"mag slice {tag}: losses not finite")
+    return summary, launches, failures
+
+
+def phase_mag_slice():
+    """The synthetic MAG at ``MAG_CACHE_PAPERS`` papers (every count in
+    ogbn-mag's ratios) written as ogbn-mag's raw cache and read back by
+    ``data/mag.py`` (every array equal to the written dataset's); then
+    ``cli.mag --dataset ogbn-mag`` on it: the 3 x 512 R-GCN teacher with
+    ``--save_ckpt`` and ``--time_steps``, the checkpoint loaded into a fresh
+    trainer (its evaluation equal to the CLI's last), then the 2 x 32 student
+    from ``--teacher_path`` in ``kd`` and in ``nce --kd_and_aux`` at
+    ``experiments/mag.json``'s point. Cut in time: 2 epochs of 30 steps, 1
+    run each. K1 counted around each run against ``_mag_launches``, nothing
+    else launched. The cache and the checkpoint are removed. Returns (K1
+    launches, failures)."""
+    import numpy as np
+    import torch
+
+    from efficient_gnns_tpu_torch.cli.mag import checkpoint_path
+    from efficient_gnns_tpu_torch.data import load_ogbn_mag
+    from efficient_gnns_tpu_torch.train import DistillConfig, MagTrainer
+    from efficient_gnns_tpu_torch.train.checkpoint import load_checkpoint
+
+    failures, k1 = [], 0
+    try:
+        t0 = time.perf_counter()
+        ds = _mag_dataset(MAG_CACHE_PAPERS)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _write_mag_cache(MAG_ROOT, ds)
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(MAG_ROOT)
+                   for f in fs)
+        t0 = time.perf_counter()
+        got = load_ogbn_mag(MAG_ROOT)
+        load_s = time.perf_counter() - t0
+        x_err = float(np.abs(got.x_paper - ds.x_paper).max())
+        same = (all(np.array_equal(getattr(got.grouped, k), getattr(ds.grouped, k))
+                    for k in ("edge_index", "edge_type", "node_type", "local_node_idx"))
+                and np.array_equal(got.y_paper, ds.y_paper) and x_err <= 1e-6
+                and all(np.array_equal(got.split_idx[k], v) for k, v in ds.split_idx.items()))
+        n = ds.grouped.node_type.shape[0]
+        print(f"mag cache: {ds.num_nodes_dict} ({n} nodes, {ds.grouped.edge_index.shape[1]} "
+              f"edges after augmentation), built {build_s:.1f} s; {size} bytes, write "
+              f"{write_s:.1f} s (gzip level 1), load {load_s:.1f} s (gzip + np.loadtxt, "
+              f"relations augmented); arrays equal to the written ones: {same} (x within "
+              f"{x_err:.1e})", flush=True)
+        if not same:
+            failures.append("mag cache: the loaded dataset differs from the written one")
+        del got
+        chunks = _mag_chunks(n)
+        summary, launches, fails = _mag_run(
+            "teacher 3 x 512 supervised",
+            MAG_TEACHER + ["--save_ckpt", MAG_CKPT, "--time_steps", str(MAG_TIME_STEPS)],
+            _mag_launches(3, chunks=chunks, time_steps=MAG_TIME_STEPS))
+        k1, failures = k1 + launches["K1"], failures + fails
+        ckpt = checkpoint_path(MAG_CKPT, 0)
+        if not os.path.exists(ckpt):
+            return k1, failures + ["mag slice: no teacher checkpoint"]
+        # the checkpoint holds the model after its last epoch: a fresh
+        # trainer that loads it evaluates as the CLI's last epoch did
+        tr = MagTrainer(DistillConfig(num_layers=3, hidden=512), ds, device=DEVICE)
+        tr.model.load_state_dict(load_checkpoint(ckpt, map_location=DEVICE))
+        accs = tr.evaluate()
+        want = tuple(summary["accuracies"]["run0"][-1])
+        print(f"mag checkpoint: {os.path.getsize(ckpt)} bytes; reloaded teacher evaluates "
+              f"{accs}, the CLI's last epoch {want}", flush=True)
+        if accs != want:
+            failures.append("mag checkpoint: the reloaded teacher evaluates otherwise")
+        del tr
+        student = _mag_launches(2, 3, chunks=chunks)
+        for tag, argv in (("student kd", ["--training", "kd"]),
+                          ("student nce --kd_and_aux", ["--training", "nce", *MAG_AUX_NCE])):
+            _, launches, fails = _mag_run(tag, argv + ["--teacher_path", MAG_CKPT], student)
+            k1, failures = k1 + launches["K1"], failures + fails
+    finally:  # the cache and the checkpoint are not kept
+        for d in (MAG_ROOT, MAG_CKPT):
+            shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return k1, failures
+
+
+def phase_mag_profile(ds):
+    """The teacher (3 x 512, ``supervised``) and the student (2 x 32, ``kd``
+    with a random 3 x 512 teacher online) at the full shape, in memory,
+    through ``MagTrainer``: a warm epoch, then one steady epoch (host clock,
+    before any profile) with the prefetch thread's host seconds a sample
+    (``sample()`` and the upload), one layer-wise evaluation, one profiled
+    epoch (device busy and idle share, top device ops), the device-only step
+    (``device_step_ms``, as ``--time_steps``) and the peak device memory.
+    Returns the K1 launches of the steady epochs (checked against
+    ``_mag_launches``) and the failures."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
+    from efficient_gnns_tpu_torch.train import DistillConfig, MagTrainer
+    from efficient_gnns_tpu_torch.train.mag_trainer import upload_bytes
+
+    failures, k1 = [], 0
+    for tag, cfg, teacher_layers in (
+            ("mag_teacher", DistillConfig(num_layers=3, hidden=512), 0),
+            ("mag_student_kd", DistillConfig(training="kd", num_layers=2, hidden=32), 3)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = MagTrainer(cfg, ds, device=DEVICE)
+        init_s = time.perf_counter() - t0
+        try:
+            tr.train_epoch(1)  # warm-up
+            csr_segment_sum.launches = 0
+            p = tr.prefetcher
+            s0, u0, n0 = p.sample_s, p.upload_s, p.samples
+            ms = _steady_ms(lambda: tr.train_epoch(2), 1)
+            launches = csr_segment_sum.launches
+            sample_ms = (p.sample_s - s0) * 1e3 / max(p.samples - n0, 1)
+            upload_ms = (p.upload_s - u0) * 1e3 / max(p.samples - n0, 1)
+            eval_ms = _steady_ms(tr.evaluate, 1)
+            k1 += launches
+            want = _mag_launches(cfg.num_layers, teacher_layers, epochs=1, chunks=0)
+            print(f"{tag} steady train epoch (30 steps, host clock, before any MAG profile): "
+                  f"{ms:.1f} ms; the prefetch thread's host time a sample: sample() "
+                  f"{sample_ms:.1f} ms, upload {upload_ms:.1f} ms; K1 launches {launches} "
+                  f"(expected {want}); one layer-wise evaluation {eval_ms:.1f} ms; trainer "
+                  f"built in {init_s:.1f} s", flush=True)
+            if launches != want:
+                failures.append(f"{tag}: {launches} K1 launches in a train epoch")
+            busy = _profile(tag, lambda: tr.train_epoch(3), 1,
+                            also=("split_segment_sum", "index", "gemm"))
+            print(f"{tag}: device busy {busy:.1f} ms of the steady {ms:.1f} ms epoch: "
+                  f"{100 * (1 - busy / ms):.1f}% idle", flush=True)
+            step_ms = tr.device_step_ms(MAG_TIME_STEPS)
+            sub = tr._resident(tr.upload(tr.sampler.sample()))
+            print(f"{tag}: device-only train step {step_ms:.2f} ms ({MAG_TIME_STEPS} chained "
+                  f"steps on one resident sample); a step's upload {upload_bytes(sub)} bytes "
+                  f"(graphs uploaded: typed {sub.typed_graph is not None}, own "
+                  f"{sub.graph is not None}); peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        finally:
+            tr.close()
+        del tr
+    return k1, failures
+
+
 PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
           "thin_group_sweep", "reference", "teacher_reference", "hub_attention",
           "sign_reference", "slice", "teacher_slice", "sign_slice", "checkpoint",
           "ogbn_cache", "runtime_spmm", "teacher_profile", "student_profile", "sign_profile",
-          "ppi_kernels", "ppi_reference", "ppi_slice", "ppi_profile")
+          "ppi_kernels", "ppi_reference", "ppi_slice", "ppi_profile", "mag_kernels",
+          "mag_reference", "mag_slice", "mag_profile")
 
 
 def main(argv=None) -> int:
@@ -1980,6 +2437,19 @@ def main(argv=None) -> int:
         failures += fails
         run("ppi_profile", phase_ppi_profile, ppi)
         del ppi
+    failures += run("mag_reference", phase_mag_reference) or []
+    mag_k1, fails = run("mag_slice", phase_mag_slice) or (0, [])
+    failures += fails
+    if chosen & {"mag_kernels", "mag_profile"}:
+        t0 = time.time()
+        mag = _mag_dataset()
+        print(f"MAG-shaped dataset built in {time.time() - t0:.1f} s: {mag.num_nodes_dict}, "
+              f"{mag.grouped.edge_index.shape[1]} edges after augmentation", flush=True)
+        recs, fails = run("mag_kernels", phase_mag_kernels, mag) or ([], [])
+        records, failures = records + recs, failures + fails
+        more, fails = run("mag_profile", phase_mag_profile, mag) or (0, [])
+        mag_k1, failures = mag_k1 + more, failures + fails
+        del mag
     run("student_profile", phase_student_profile, ds)
     run("sign_profile", phase_sign_profile, ds)
     if "teacher_profile" in chosen:
@@ -1993,7 +2463,7 @@ def main(argv=None) -> int:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
     launches["K1"] = (k1_launches + launches.get("K1", 0) + rt_launches.get("K1", 0)
-                      + sign_launches + ck_launches + ogbn_launches)
+                      + sign_launches + ck_launches + ogbn_launches + mag_k1)
     launches["K3"] = launches.get("K3", 0) + rt_launches.get("K3", 0)
     for k, n in ppi_launches.items():
         launches[k] = launches.get(k, 0) + n

@@ -1,4 +1,5 @@
 from efficient_gnns_tpu_torch.graphs.container import Graph
+from efficient_gnns_tpu_torch.graphs.hetero import GroupedHetero, group_hetero_graph, mag_preprocess
 from efficient_gnns_tpu_torch.graphs.hub_dense import HubPartition, auto_hub_size
 from efficient_gnns_tpu_torch.graphs.preprocess import (
     add_self_loops,
@@ -18,6 +19,7 @@ from efficient_gnns_tpu_torch.graphs.row_split import (
 
 __all__ = [
     "Graph",
+    "GroupedHetero",
     "HubPartition",
     "ROW_SPLIT_THRESHOLD",
     "RowSplit",
@@ -26,7 +28,9 @@ __all__ = [
     "build_graph",
     "build_row_split",
     "gcn_norm_weights",
+    "group_hetero_graph",
     "induced_subgraph",
+    "mag_preprocess",
     "pad_length",
     "sddmm_by_split",
     "segment_reduce_by_split",

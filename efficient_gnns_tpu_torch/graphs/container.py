@@ -21,7 +21,13 @@ its long rows in both orders (``row_split`` / ``t_row_split``,
 ``graphs/row_split.py``), which the CSR kernels use to split power-law hub
 rows. A graph built with ``hub_dense`` also carries the hub partition of its
 edges (``graphs/hub_dense.py``), which decides the edge-drop masks of the hub
-attention path.
+attention path. A relation-typed graph (R-GCN) carries ``edge_type``.
+
+The tall typed layout of the sampled R-GCN (``sampling/saint.py``) has
+``R * nb`` rows and receivers below ``nb``: built with ``max_dst=nb`` it also
+carries the row split of ``row_offsets[:nb + 1]`` (``dst_row_split``), so
+that its forward aggregation writes the ``nb`` rows that can be non-zero and
+not the ``R * nb`` (the counterpart of the JAX ``block_max_dst``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,12 @@ from typing import Optional
 import torch
 
 from efficient_gnns_tpu_torch.graphs.hub_dense import HubPartition
-from efficient_gnns_tpu_torch.graphs.row_split import RowSplit
+from efficient_gnns_tpu_torch.graphs.row_split import RowSplit, is_recorded_pair, record_pair
+
+# (split, offsets) fields that build_graph pairs: a pair recorded before a
+# move is recorded after it (see ops/cuda/segment_sum.py::check_split)
+_SPLIT_PAIRS = (("row_split", "row_offsets"), ("t_row_split", "t_row_offsets"),
+                ("dst_row_split", "row_offsets"))
 
 
 @dataclasses.dataclass
@@ -58,6 +69,12 @@ class Graph:
         ``t_row_offsets`` (``build_graph`` attaches both; without them K1, K2,
         K5 and K6 derive the schedule at every call, with a host copy).
       hub: optional :class:`HubPartition` (``build_graph(hub_dense=...)``).
+      edge_type: optional int32[E_pad] relation id of each edge in CSR
+        order; padding entries equal ``num_edge_types``.
+      num_edge_types: relation count R (0 for an untyped graph).
+      max_dst: optional bound below which every receiver lies
+        (``build_graph(max_dst=...)``); ``dst_row_split`` is then the row
+        split of ``row_offsets[:max_dst + 1]``.
     """
 
     senders: torch.Tensor
@@ -76,6 +93,10 @@ class Graph:
     row_split: Optional[RowSplit] = None
     t_row_split: Optional[RowSplit] = None
     hub: Optional[HubPartition] = None
+    edge_type: Optional[torch.Tensor] = None
+    num_edge_types: int = 0
+    max_dst: Optional[int] = None
+    dst_row_split: Optional[RowSplit] = None
 
     @property
     def num_edges_padded(self) -> int:
@@ -99,9 +120,10 @@ class Graph:
         return (self.t_row_offsets[1:] - self.t_row_offsets[:-1]).float()
 
     def to(self, device) -> "Graph":
-        """A copy with every tensor (and both row splits and the hub
-        partition) on ``device``."""
-        return dataclasses.replace(
+        """A copy with every tensor (and the row splits and the hub
+        partition) on ``device``. A (split, offsets) pair that was recorded
+        as built together stays recorded."""
+        moved = dataclasses.replace(
             self,
             **{
                 f.name: getattr(self, f.name).to(device)
@@ -109,6 +131,11 @@ class Graph:
                 if isinstance(getattr(self, f.name), (torch.Tensor, RowSplit, HubPartition))
             },
         )
+        for split, offsets in _SPLIT_PAIRS:
+            old = getattr(self, split)
+            if old is not None and is_recorded_pair(old, getattr(self, offsets)):
+                record_pair(getattr(moved, split), getattr(moved, offsets))
+        return moved
 
     def transpose(self) -> "Graph":
         """The transposed graph (receivers <-> senders); both edge orders
@@ -134,4 +161,6 @@ class Graph:
             row_split=self.t_row_split,
             t_row_split=self.row_split,
             hub=None if self.hub is None else self.hub.transpose(),
+            edge_type=None if self.edge_type is None else self.edge_type[self.csc_perm.long()],
+            num_edge_types=self.num_edge_types,
         )

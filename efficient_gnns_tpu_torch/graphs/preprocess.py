@@ -8,7 +8,8 @@ NumPy forms of the JAX package's native helpers (``np.lexsort`` and
 
 Not ported here: the Pallas edge blockings and the hub-dense slices (TPU
 layouts; the CUDA kernels walk CSR over all edges, with the long rows cut
-into chunks by ``graphs/row_split.py``) and per-edge types. See ROADMAP.md.
+into chunks by ``graphs/row_split.py``). ``max_dst`` is the counterpart of
+their ``block_max_dst``.
 The hub partition itself is built (``hub_dense``), because it decides the
 edge-drop masks of the hub attention path.
 """
@@ -23,7 +24,7 @@ import torch
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.graphs.hub_dense import auto_hub_size, build_hub_partition
-from efficient_gnns_tpu_torch.graphs.row_split import build_row_split
+from efficient_gnns_tpu_torch.graphs.row_split import build_row_split, record_pair
 
 
 def pad_length(n: int, multiple: int = 128) -> int:
@@ -78,6 +79,8 @@ def build_graph(
     num_nodes: int,
     *,
     edge_weight: Optional[np.ndarray] = None,
+    edge_type: Optional[np.ndarray] = None,
+    num_edge_types: int = 0,
     bidirected: bool = False,
     self_loops: bool = False,
     pad_nodes_to: Optional[int] = None,
@@ -86,15 +89,20 @@ def build_graph(
     n_node_valid: Optional[int] = None,
     gcn_norm: bool = False,
     hub_dense=0,
+    max_dst: Optional[int] = None,
 ) -> Graph:
     """Build a :class:`Graph` on the CPU from a raw COO edge list.
 
     Sorts edges by receiver (ties by sender), materializes the transpose
     order, both CSR offset arrays and their row splits, and pads the edge
     list to a static length with out-of-range sentinels. Move the result
-    with ``.to(device)``.
+    with ``.to(device)``. Each row split is recorded as the split of its
+    offsets (``graphs/row_split.py::record_pair``), so the kernels take it
+    without rebuilding it.
 
     Args:
+      edge_type: optional int[E] relation id per edge, ordered with the
+        edges; padding entries get ``num_edge_types``.
       pad_nodes_to: node-dimension size (defaults to ``num_nodes``).
       pad_edges_to: edge count; defaults to the edge count rounded up to
         ``edge_pad_multiple``.
@@ -112,15 +120,18 @@ def build_graph(
         builds would fit its memory budget. The JAX default ``"auto"``
         applies only with ``block=True`` there, hence 0 here; the synthetic
         dataset passes ``"auto"``.
+      max_dst: every receiver lies below it (raises otherwise); the graph
+        then carries ``dst_row_split``, the row split of
+        ``row_offsets[:max_dst + 1]`` (the tall typed R-GCN layout).
     """
     senders = np.asarray(senders, dtype=np.int64)
     receivers = np.asarray(receivers, dtype=np.int64)
     if bidirected:
-        if edge_weight is not None:
+        if edge_weight is not None or edge_type is not None:
             raise ValueError("bidirected=True incompatible with edge payloads")
         senders, receivers = to_bidirected(senders, receivers)
     if self_loops:
-        if edge_weight is not None:
+        if edge_weight is not None or edge_type is not None:
             raise ValueError("self_loops=True incompatible with edge payloads")
         senders, receivers = add_self_loops(senders, receivers, num_nodes)
 
@@ -166,6 +177,13 @@ def build_graph(
             ew = np.zeros(e_pad, dtype=np.float32)
             ew[:e] = (inv_sqrt[s_csr] * inv_sqrt[r_csr]).astype(np.float32)
 
+    et = None
+    if edge_type is not None:
+        et = np.full(e_pad, num_edge_types, dtype=np.int32)
+        et[:e] = np.asarray(edge_type, dtype=np.int32)[csr_order]
+    if max_dst is not None and e and int(r_csr[-1]) >= max_dst:
+        raise ValueError(f"max_dst={max_dst} but a receiver is {int(r_csr[-1])}")
+
     h = (auto_hub_size(n_pad, e, itemsize=2 if ew is None else 4,
                        widths=(512, 256) if ew is None and node_scale is None else (256,))
          if hub_dense == "auto" else int(hub_dense))
@@ -174,7 +192,7 @@ def build_graph(
     n_valid = num_nodes if n_node_valid is None else n_node_valid
     row_offsets = _csr_offsets(r_csr, n_pad)
     t_row_offsets = _csr_offsets(t_r, n_pad)
-    return Graph(
+    graph = Graph(
         senders=_pad_idx(s_csr),
         receivers=_pad_idx(r_csr),
         t_senders=_pad_idx(t_s),
@@ -191,7 +209,16 @@ def build_graph(
         row_split=build_row_split(row_offsets),
         t_row_split=build_row_split(t_row_offsets),
         hub=hub,
+        edge_type=None if et is None else torch.from_numpy(et),
+        num_edge_types=int(num_edge_types),
+        max_dst=None if max_dst is None else int(max_dst),
+        dst_row_split=None if max_dst is None else build_row_split(row_offsets[:max_dst + 1]),
     )
+    record_pair(graph.row_split, graph.row_offsets)
+    record_pair(graph.t_row_split, graph.t_row_offsets)
+    if graph.dst_row_split is not None:
+        record_pair(graph.dst_row_split, graph.row_offsets)
+    return graph
 
 
 def induced_subgraph(

@@ -25,6 +25,7 @@ PyTorch, as a sum or a max, and :func:`sddmm_by_split` as K3 and K4 do.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -105,6 +106,28 @@ def build_row_split(row_offsets, threshold: int = ROW_SPLIT_THRESHOLD) -> RowSpl
         long_first=torch.from_numpy(long_first.astype(np.int32)),
         threshold=int(threshold), num_rows=int(ro.size - 1), num_edges=int(ro[-1]),
     )
+
+
+# (id(split), address and version of row_offsets) -> split, for the pairs known
+# to belong together: built from one host array (``build_graph``), moved
+# together (``Graph.to``) or compared by ``check_split``. An entry goes when
+# its split does.
+_paired: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
+def _pair_key(split: RowSplit, row_offsets: torch.Tensor):
+    return id(split), row_offsets.data_ptr(), row_offsets._version
+
+
+def record_pair(split: RowSplit, row_offsets: torch.Tensor) -> None:
+    """Record that ``split`` is the row split of ``row_offsets`` as they stand
+    (an edit of the offsets in place, or a view at another address, is not
+    covered)."""
+    _paired[_pair_key(split, row_offsets)] = split
+
+
+def is_recorded_pair(split: RowSplit, row_offsets: torch.Tensor) -> bool:
+    return _paired.get(_pair_key(split, row_offsets)) is split
 
 
 def segment_reduce_by_split(vals: torch.Tensor, row_offsets: torch.Tensor,

@@ -1,6 +1,6 @@
 """The GNN model zoo (counterpart of ``efficient_gnns_tpu/models/gnns.py``;
 the GCN and SAGE students, their projection heads, the GAT teacher, the
-graph-agnostic SIGN student and the PPI GATs).
+graph-agnostic SIGN student, the PPI GATs and the MAG R-GCN).
 
 Every model's ``forward`` returns ``(logits, out_feat)``, ``out_feat`` being
 the representation used by feature-space distillation. Train or eval mode is
@@ -25,6 +25,7 @@ from efficient_gnns_tpu_torch.models.layers import (
     GCNConv,
     MaskedBatchNorm,
     PyGGATConv,
+    RGCNConv,
     SAGEConv,
     dropout,
     prelu,
@@ -270,3 +271,61 @@ def ppi_student(in_feats: int, num_classes: int, *, seed: int = 0, device="cuda"
     (``ppi_pyg/gnn.py:50-83``); ``out_feat`` is 136 wide."""
     return PPIGAT(in_feats, 68, num_classes, 5, heads=2, final_heads=2, seed=seed,
                   device=device)
+
+
+class RGCN(nn.Module):
+    """Heterogeneous R-GCN (reference ``mag_pyg/gnn.py:70-138``): trainable
+    embedding tables ``embs[str(type_id)]`` (``[size, in_feats]``) for the
+    featureless node types, injected through the clipped ``local_node_idx``
+    gather, then ``num_layers`` :class:`RGCNConv` with ReLU and dropout
+    between them; ``out_feat`` is the last hidden layer (``hidden`` wide).
+    ``emb_sizes`` holds ``(node_type_id, table_size)`` pairs.
+
+    Weights are initialized from ``torch.Generator().manual_seed(seed)`` on
+    the CPU, then moved to ``device``.
+    """
+
+    def __init__(self, in_feats: int, hidden: int, out_feats: int, num_layers: int,
+                 num_node_types: int, num_edge_types: int, dropout: float = 0.5,
+                 emb_sizes: Sequence[tuple] = (), *, seed: int = 0, device="cuda"):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        self.emb_sizes = tuple((int(t), int(size)) for t, size in emb_sizes)
+        self.embs = nn.ParameterDict({
+            str(t): xavier_uniform(size, in_feats, gen, device) for t, size in self.emb_sizes})
+        dims = [in_feats] + [hidden] * (num_layers - 1) + [out_feats]
+        self.convs = nn.ModuleList(
+            RGCNConv(dims[i], dims[i + 1], num_node_types, num_edge_types, generator=gen,
+                     device=device)
+            for i in range(num_layers))
+        self.num_node_types, self.num_edge_types = num_node_types, num_edge_types
+        self.feat_dim, self.dropout = hidden, dropout
+
+    def embed(self, x: torch.Tensor, node_type: torch.Tensor,
+              local_node_idx: torch.Tensor) -> torch.Tensor:
+        """``x`` with each featureless node's row taken from its type's table.
+
+        Every node gathers a row of every table (its clipped local index, as
+        in the JAX module), so most indices of a small table repeat. The
+        gather is ``F.embedding``, whose CUDA backward sums repeated indices
+        in parallel segments after a sort; the backward of ``table[idx]``
+        walks each index's repeats in one warp, one after the other (32 ms a
+        table at ogbn-mag's shape, on an H100)."""
+        h = x
+        for t, size in self.emb_sizes:
+            rows = F.embedding(local_node_idx.long().clamp(0, size - 1), self.embs[str(t)])
+            h = torch.where((node_type == t)[:, None], rows.to(h.dtype), h)
+        return h
+
+    def forward(self, graph: Optional[Graph], x: torch.Tensor, node_type: torch.Tensor,
+                local_node_idx: torch.Tensor, typed_graph: Optional[Graph] = None,
+                generator: Optional[torch.Generator] = None):
+        h, out_feat = self.embed(x, node_type, local_node_idx), None
+        for i, conv in enumerate(self.convs):
+            h = conv(graph, h, node_type, typed_graph)
+            if i < len(self.convs) - 1:
+                h = torch.relu(h)
+                if self.training:
+                    h = dropout(h, self.dropout, generator)
+                out_feat = h
+        return h, out_feat

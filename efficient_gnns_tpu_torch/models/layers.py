@@ -1,7 +1,7 @@
 """Graph convolution layers (counterpart of
 ``efficient_gnns_tpu/models/layers.py``; ``GCNConv``, ``SAGEConv``,
-``MaskedBatchNorm``, ``DGLGATConv``, ``PyGGATConv``, ``ElementWiseLinear``,
-SIGN's ``FeedForwardNet`` and flax's ``Dense``).
+``MaskedBatchNorm``, ``DGLGATConv``, ``PyGGATConv``, ``RGCNConv``,
+``ElementWiseLinear``, SIGN's ``FeedForwardNet`` and flax's ``Dense``).
 
 Parameters are created on the CPU and initialized from an explicit
 ``torch.Generator``, then moved to ``device``, so one seed gives the same
@@ -267,6 +267,61 @@ class PyGGATConv(nn.Module):
                             attn_keep=attn, attn_keep_prob=1.0 - self.dropout)
         rst = rst.reshape(-1, h * d) if self.concat else rst.mean(1)
         return rst + self.bias.to(rst.dtype)
+
+
+class RGCNConv(nn.Module):
+    """Relational conv (reference ``mag_pyg/gnn.py:26-71``): per-relation
+    mean aggregation through no-bias kernels ``rel_weights[r]`` plus a
+    per-node-type root :class:`Dense` ``root_lins[t]`` with bias.
+
+    Two execution paths with the same math (``mean(W_r x_j) = W_r mean(x_j)``)
+    and the same parameters, both on K1:
+
+    * ``typed_graph`` (the sampler's typed square layout): the stacked
+      projections ``[x W_0; ...; x W_{R-1}]`` (one batched matmul,
+      ``[R * n, F]``) go through ONE static-weight ``spmm`` whose weights
+      ``1/deg_type[receiver]`` carry the mean, into the ``n`` rows that can
+      be non-zero (``dst_rows``: the typed graph is built with
+      ``max_dst = n``).
+    * the masked fallback over ``graph.edge_type``: per relation, the
+      in-degree and the sum through ``spmm`` with 0/1 runtime weights and
+      ``weight_grad=False`` (K1 alone, no K3), then ``W_r``.
+    """
+
+    def __init__(self, in_features: int, features: int, num_node_types: int,
+                 num_edge_types: int, *, generator: torch.Generator, device="cuda"):
+        super().__init__()
+        self.features = features
+        self.rel_weights = nn.ParameterList(
+            xavier_uniform(in_features, features, generator, device)
+            for _ in range(num_edge_types))
+        self.root_lins = nn.ModuleList(
+            Dense(in_features, features, generator=generator, device=device)
+            for _ in range(num_node_types))
+
+    def forward(self, graph: Optional[Graph], x: torch.Tensor, node_type: torch.Tensor,
+                typed_graph: Optional[Graph] = None) -> torch.Tensor:
+        n = x.shape[0]
+        if typed_graph is not None:
+            if typed_graph.max_dst != n:
+                raise ValueError(f"RGCNConv: the typed graph must be built with max_dst={n} "
+                                 f"(the node count), not {typed_graph.max_dst}")
+            # [R, n, F] -> [R * n, F]: row r * n + s is x[s] @ W_r
+            xw = torch.matmul(x, torch.stack(list(self.rel_weights))).reshape(-1, self.features)
+            out = spmm(typed_graph, xw, dst_rows=True)
+        else:
+            if graph is None or graph.edge_type is None:
+                raise ValueError("RGCNConv without typed_graph needs graph.edge_type")
+            out = x.new_zeros(n, self.features)
+            ones = x.new_ones(n, 1)
+            for r, weight in enumerate(self.rel_weights):
+                sel = (graph.edge_type == r).to(x.dtype)
+                deg = spmm(graph, ones, edge_weight=sel, weight_grad=False)
+                agg = spmm(graph, x, edge_weight=sel, weight_grad=False) / deg.clamp_min(1.0)
+                out = out + agg @ weight
+        for t, lin in enumerate(self.root_lins):
+            out = out + torch.where((node_type == t)[:, None], lin(x), 0.0)
+        return out
 
 
 class ElementWiseLinear(nn.Module):

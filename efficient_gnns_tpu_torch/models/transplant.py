@@ -7,7 +7,8 @@ projection head. A flax ``Dense`` kernel is ``[in, out]``; the port keeps
 that layout (its ``GCNConv.weight``, ``SAGEConv.weight`` / ``root_weight``,
 ``PyGGATConv.weight``, ``Dense.weight``, the projection heads' ``weight`` /
 ``lin_weight``, ``DGLGATConv.fc_weight`` / ``res_weight`` and
-``FeedForwardNet.weights`` are applied as ``x @ weight``), so kernels are
+``FeedForwardNet.weights``, ``RGCNConv.rel_weights`` are applied as
+``x @ weight``), so kernels are
 copied, not transposed; ``attn_l`` / ``attn_r`` and ``att_src`` /
 ``att_dst`` keep their ``[D, H]`` layout too.
 """
@@ -40,6 +41,11 @@ _PARAM_RULES = (
     (re.compile(r"conv_(\d+)/att_(src|dst)"), "convs.{}.att_{}"),
     (re.compile(r"lin_(\d+)/kernel"), "lins.{}.weight"),
     (re.compile(r"lin_(\d+)/bias"), "lins.{}.bias"),
+    # RGCN: per-relation kernels, per-node-type root Dense, embedding tables
+    (re.compile(r"conv_(\d+)/rel_lin_(\d+)/kernel"), "convs.{}.rel_weights.{}"),
+    (re.compile(r"conv_(\d+)/root_lin_(\d+)/kernel"), "convs.{}.root_lins.{}.weight"),
+    (re.compile(r"conv_(\d+)/root_lin_(\d+)/bias"), "convs.{}.root_lins.{}.bias"),
+    (re.compile(r"emb_(\d+)"), "embs.{}"),
     # GATTeacher
     (re.compile(r"gat_(\d+)/Dense_0/kernel"), "convs.{}.fc_weight"),
     (re.compile(r"gat_(\d+)/Dense_1/kernel"), "convs.{}.res_weight"),
@@ -93,7 +99,7 @@ def _rename(flat: Dict[str, np.ndarray], rules) -> Dict[str, torch.Tensor]:
 
 def from_jax_params(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
     """``state_dict`` for the port's ``GCN``, ``SAGE``, ``GATTeacher``, ``SIGN``,
-    ``PPIGAT`` or a projection head (``ProjectionLinear``, ``ProjectionMLP``,
+    ``PPIGAT``, ``RGCN`` or a projection head (``ProjectionLinear``, ``ProjectionMLP``,
     ``ProjectionGCD``) from the JAX module's ``params`` and ``batch_stats``."""
     state = _rename(_flatten(params), _PARAM_RULES)
     state.update(_rename(_flatten(batch_stats), _STAT_RULES))

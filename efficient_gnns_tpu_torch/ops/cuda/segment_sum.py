@@ -20,12 +20,16 @@ the kernel for tensors on a CUDA device; it never moves work between them.
 from __future__ import annotations
 
 import ctypes
-import weakref
 from typing import Optional
 
 import torch
 
-from efficient_gnns_tpu_torch.graphs.row_split import RowSplit, build_row_split
+from efficient_gnns_tpu_torch.graphs.row_split import (
+    RowSplit,
+    build_row_split,
+    is_recorded_pair,
+    record_pair,
+)
 from efficient_gnns_tpu_torch.ops.cuda import build
 from efficient_gnns_tpu_torch.ops.segment import csr_row_ids, gather, segment_sum
 
@@ -78,11 +82,6 @@ def float_vec(dtype: torch.dtype, d: int, ptr: int) -> int:
     return 1
 
 
-# (id(split), address and version of row_offsets) -> split, for the pairs that
-# check_split has compared; an entry goes when its split does
-_checked_splits: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
-
-
 def check_split(name: str, split: Optional[RowSplit], row_offsets: torch.Tensor,
                 edges: torch.Tensor) -> None:
     """Raise unless ``split`` (when given) is the row split of ``row_offsets``
@@ -91,7 +90,10 @@ def check_split(name: str, split: Optional[RowSplit], row_offsets: torch.Tensor,
     Shape and device are compared at every call. That the schedule was built
     from these very offsets (and not, say, from the other edge order's, which
     have the same shape) is checked by building it again, the first time a
-    split meets a ``row_offsets`` tensor: one host copy then, none later.
+    split meets a ``row_offsets`` tensor: one host copy then, none later. A
+    pair that ``build_graph`` made from one host array, and moved with
+    ``Graph.to``, is recorded there and taken without the copy: a sampler's
+    new graph at every step does not wait for the device.
     """
     if split is None:
         return
@@ -101,8 +103,7 @@ def check_split(name: str, split: Optional[RowSplit], row_offsets: torch.Tensor,
             f"{name}: row split of {split.num_rows} rows / {split.num_edges} edges on "
             f"{split.device} does not fit row_offsets [{row_offsets.numel()}] and "
             f"[{edges.shape[0]}] edges on {row_offsets.device}")
-    key = (id(split), row_offsets.data_ptr(), row_offsets._version)
-    if _checked_splits.get(key) is split:
+    if is_recorded_pair(split, row_offsets):
         return
     want = build_row_split(row_offsets, split.threshold)
     if not (want.num_edges == split.num_edges
@@ -112,7 +113,7 @@ def check_split(name: str, split: Optional[RowSplit], row_offsets: torch.Tensor,
         raise ValueError(
             f"{name}: the row split was not built from these row_offsets "
             f"(the other edge order's, or another graph's)")
-    _checked_splits[key] = split
+    record_pair(split, row_offsets)
 
 
 def derive_split(row_offsets: torch.Tensor) -> RowSplit:

@@ -42,22 +42,28 @@ def _aggregate(values, senders, row_offsets, weight, split, msg_dtype, out_dtype
 
 
 class _SpMMStatic(torch.autograd.Function):
-    """``out = A_w @ x`` with the graph's static (non-trained) weights."""
+    """``out = A_w @ x`` with the graph's static (non-trained) weights; with
+    ``dst_rows`` only the first ``graph.max_dst`` rows of it (the others are
+    empty), over ``row_offsets[:max_dst + 1]``: the backward is the same K1
+    over the transpose CSR, whose senders all lie below ``max_dst``."""
 
     @staticmethod
-    def forward(ctx, x, graph: Graph, msg_dtype):
+    def forward(ctx, x, graph: Graph, msg_dtype, dst_rows: bool):
         ctx.graph, ctx.msg_dtype = graph, msg_dtype
+        if dst_rows:
+            return _aggregate(x, graph.senders, graph.row_offsets[:graph.max_dst + 1],
+                              graph.edge_weight, graph.dst_row_split, msg_dtype, x.dtype)
         return _aggregate(x, graph.senders, graph.row_offsets, graph.edge_weight,
                           graph.row_split, msg_dtype, x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         if not ctx.needs_input_grad[0]:
-            return None, None, None
+            return None, None, None, None
         graph = ctx.graph
         dx = _aggregate(g, graph.t_senders, graph.t_row_offsets,
                         graph.t_edge_weight, graph.t_row_split, ctx.msg_dtype, g.dtype)
-        return dx, None, None
+        return dx, None, None, None
 
 
 class _SpMMRuntime(torch.autograd.Function):
@@ -101,6 +107,7 @@ def spmm(
     transpose: bool = False,
     weight_grad: bool = True,
     message_dtype: Optional[torch.dtype] = None,
+    dst_rows: bool = False,
 ) -> torch.Tensor:
     """``out[r] = sum_{e:(s->r)} w_e * x[s]`` — message passing aggregation.
 
@@ -116,11 +123,18 @@ def spmm(
       message_dtype: dtype in which K1 reads the messages (and the
         backward the cotangent); None takes ``dispatch.message_dtype()``.
         The hub attention path passes ``dispatch.hub_message_dtype()``.
+      dst_rows: return only the first ``graph.max_dst`` rows, the ones a
+        graph built with ``max_dst`` can fill (static weights only); equal
+        to ``spmm(graph, x)[:graph.max_dst]`` without writing the rest.
     """
     if x.dim() != 2 or x.shape[0] != graph.num_nodes:
         raise ValueError(
             f"spmm: x must be [num_nodes={graph.num_nodes}, F], got {tuple(x.shape)}"
         )
+    if dst_rows and (graph.max_dst is None or edge_weight is not None or transpose
+                     or graph.node_scale is not None):
+        raise ValueError("spmm: dst_rows needs a graph built with max_dst, its static "
+                         "weights and no transpose")
     if transpose:
         graph = graph.transpose()
     if graph.node_scale is not None and edge_weight is not None:
@@ -144,7 +158,7 @@ def spmm(
                 f"{tuple(edge_weight.shape)}"
             )
         return _SpMMRuntime.apply(x, edge_weight, graph, msg_dtype, weight_grad)
-    return _SpMMStatic.apply(x, graph, msg_dtype)
+    return _SpMMStatic.apply(x, graph, msg_dtype, dst_rows)
 
 
 def spmm_mean(

@@ -1,6 +1,8 @@
 from efficient_gnns_tpu_torch.train.config import DistillConfig
 from efficient_gnns_tpu_torch.train.gat_teacher import GATTeacherTrainer, TeacherConfig
+from efficient_gnns_tpu_torch.train.layerwise import RGCNLayerwiseInference
 from efficient_gnns_tpu_torch.train.logger import Logger
+from efficient_gnns_tpu_torch.train.mag_trainer import MagTrainer, rgcn_for
 from efficient_gnns_tpu_torch.train.metrics import MetricsWriter
 from efficient_gnns_tpu_torch.train.node_trainer import NodeDistillTrainer
 from efficient_gnns_tpu_torch.train.ppi_trainer import PPITrainer
@@ -10,9 +12,12 @@ __all__ = [
     "DistillConfig",
     "GATTeacherTrainer",
     "Logger",
+    "MagTrainer",
     "MetricsWriter",
     "NodeDistillTrainer",
     "PPITrainer",
+    "RGCNLayerwiseInference",
     "SIGNTrainer",
     "TeacherConfig",
+    "rgcn_for",
 ]

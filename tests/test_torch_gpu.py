@@ -296,3 +296,72 @@ def test_ppi_trainer_epoch_on_card_matches_cpu(cuda_device, mode, kd_and_aux):
                              + list(tr.evaluate_all()))
     np.testing.assert_allclose(results[str(cuda_device)][:2], results["cpu"][:2], rtol=1e-4)
     np.testing.assert_allclose(results[str(cuda_device)][2:], results["cpu"][2:], atol=0.02)
+
+
+def _typed_square(rng, nb=90, num_types=7, e=900):
+    # the sampler's tall typed layout: senders at type * nb + s, receivers
+    # below nb, per-(type, receiver) mean weights; receiver 0 holds a long row
+    s = rng.integers(0, nb, size=e)
+    r = rng.integers(0, nb, size=e)
+    r[: e // 3] = 0
+    et = rng.integers(0, num_types, size=e)
+    cell = et * nb + r
+    w = 1.0 / np.maximum(np.bincount(cell, minlength=num_types * nb)[cell], 1)
+    return build_graph(s + et * nb, r, num_types * nb, edge_weight=w, edge_pad_multiple=256,
+                       max_dst=nb)
+
+
+@pytest.mark.parametrize("f", [512, 349, 32, 1])
+def test_k1_on_the_tall_typed_graph_on_card(rng, cuda_device, f):
+    g = _typed_square(rng).to(cuda_device)
+    nb = g.max_dst
+    assert g.row_split.num_long >= 1
+    x = torch.from_numpy(rng.normal(size=(g.num_nodes, f)).astype(np.float32)).to(cuda_device)
+    gy = torch.from_numpy(rng.normal(size=(nb, f)).astype(np.float32)).to(cuda_device)
+    launches = csr_segment_sum.launches
+    for src, ro, w, split, inp in (
+            (g.senders, g.row_offsets[:nb + 1], g.edge_weight, g.dst_row_split, x),
+            (g.senders, g.row_offsets, g.edge_weight, g.row_split, x),
+            (g.t_senders, g.t_row_offsets, g.t_edge_weight, g.t_row_split, gy)):
+        got = csr_segment_sum(inp, src, ro, w, split)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, csr_segment_sum_plain(inp, src, ro, w),
+                                   rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, csr_segment_sum(inp, src, ro, w, split))
+    assert csr_segment_sum.launches == launches + 6
+    from efficient_gnns_tpu_torch.ops import spmm
+
+    # the typed forward's nb rows are the full product's first nb; its
+    # gradient is the same either way
+    xr = x.clone().requires_grad_(True)
+    full = spmm(g, xr)
+    (dfull,) = torch.autograd.grad((full[:nb] * gy).sum(), xr)
+    rows = spmm(g, xr, dst_rows=True)
+    (drows,) = torch.autograd.grad((rows * gy).sum(), xr)
+    assert torch.equal(rows, full[:nb]) and torch.equal(drows, dfull)
+    assert not full[nb:].any()
+
+
+@pytest.mark.parametrize("mode,typed", [("supervised", True), ("kd", False), ("nce", True)])
+def test_mag_trainer_epoch_on_card_matches_cpu(cuda_device, mode, typed):
+    from efficient_gnns_tpu_torch.data import synthetic_mag_dataset
+    from efficient_gnns_tpu_torch.train import DistillConfig, MagTrainer
+
+    ds = synthetic_mag_dataset(n_paper=300, n_author=150, n_inst=10, n_field=30,
+                               feat_dim=16, num_classes=4, seed=3)
+    cfg = DistillConfig(training=mode, hidden=8, num_layers=2, dropout=0.0, lr=0.01,
+                        beta=1.0, max_samples=4096, proj_dim=8)
+    results = {}
+    for dev in ("cpu", cuda_device):  # max_samples above the node budget: no row subset
+        tr = MagTrainer(cfg, ds, batch_size=48, num_steps=3, seed=0, teacher_hidden=12,
+                        teacher_layers=2, typed_square=typed, device=dev)
+        try:
+            results[str(dev)] = [tr.train_epoch(e)["loss"] for e in (1, 2)]
+            logits = tr.logits().cpu()
+        finally:
+            tr.close()
+        results[str(dev)] += [logits, tr.logits(layerwise=False).cpu()]
+    got, want = results[str(cuda_device)], results["cpu"]
+    np.testing.assert_allclose(got[:2], want[:2], rtol=1e-4)
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

@@ -37,7 +37,9 @@ def test_port_imports_without_jax():
                  "train.config", "train.node_trainer", "graphs.hub_dense",
                  "ops.hub_attention", "ops.dispatch", "cli.sign", "data.ogb",
                  "sampling.minibatch", "sampling.hop_precompute", "train.checkpoint",
-                 "train.sign_trainer", "data.ppi", "train.ppi_trainer", "cli.ppi"):
+                 "train.sign_trainer", "data.ppi", "train.ppi_trainer", "cli.ppi",
+                 "graphs.hetero", "data.mag", "native.host", "sampling.saint",
+                 "train.layerwise", "train.mag_trainer", "cli.mag"):
         assert f"efficient_gnns_tpu_torch.{name}" in modules, name
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
