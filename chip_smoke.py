@@ -127,7 +127,29 @@ it imports nothing of JAX. Phases, each of which must pass:
 26. the full-shape MAG epochs through ``MagTrainer``: the teacher and the
     student ``kd``, a steady epoch, the prefetch thread's host time a
     sample, one layer-wise evaluation, one profiled epoch (busy and idle
-    share), the device-only step and the peak device memory.
+    share), the device-only step and the peak device memory;
+27. small-input reference: ``MolGNN`` on the card against the same module
+    on the CPU (GIN-E with the virtual node, GIN, GCN, PNA: forward,
+    BatchNorm statistics, every gradient), ``MolTrainer`` on the card
+    against the CPU (``supervised``, ``kd``, ``nce --kd_and_aux``, ``gpw``),
+    and one train step of the 300 x 5 GIN-E and PNA taken twice from one
+    state, which must give the same bits (no float atomics on the path);
+28. K1 at the molhiv shapes on a packed batch of the full-count synthetic
+    ogbg-molhiv (batch 32: 1,024 nodes, 3,072 edges; and batch 128): a
+    conv's aggregation and the senders gather's backward at F = 300 and 64,
+    the pool over the graphs at F = 300, against their plain versions and
+    one PyTorch call each (``torch.segment_reduce``, ``index_add_``);
+29. the molhiv slice: ``cli.mol`` on a quarter of ogbg-molhiv's train
+    molecules (8,225) and its whole valid and test splits (4,113 each) trains the GIN-E teacher (300 x 5, virtual node) with
+    its checkpoint, the GCN student (2 x 64) from it in ``kd`` and ``nce
+    --kd_and_aux``, then the PNA teacher (300 x 5), ``MOL_EPOCHS`` each,
+    K1's launches checked against ``_mol_launches``;
+30. the full-count set written as OGB's ogbg-molhiv raw cache, read back
+    by ``data/molhiv.py`` (every molecule equal) and trained on one epoch
+    through ``cli.mol --dataset ogbg-molhiv``;
+31. a chunk of GIN-E teacher and GCN ``kd`` student steps through
+    ``MolTrainer``: the steady step, the host's pack time a batch, an
+    evaluation, and one profiled chunk (busy and idle share, top ops).
 
 ``--only a,b`` runs the named phases alone (see ``main``). The last lines
 are the kernels' JSON record, the ``nvidia-smi`` line and
@@ -2347,12 +2369,510 @@ def phase_mag_profile(ds):
     return k1, failures
 
 
+MOL_COUNTS = dict(n_train=32901, n_valid=4113, n_test=4113)  # OGB's scaffold split
+# cut in time: cli.mol trains on a quarter of the train split (a GIN-E epoch
+# of the full split is 38 s of host time on the card); valid and test whole
+MOL_SLICE = dict(n_train=8225, n_valid=4113, n_test=4113)
+MOL_DATA = [a for k, v in MOL_SLICE.items() for a in (f"--{k}", str(v))]
+MOL_BATCH = 32  # the CLI's default, and MolTrainer's max_atoms=32: 1,024 nodes, 3,072 edges
+MOL_TEACHER = ["--hidden_channels", "300", "--num_layers", "5", "--training", "supervised"]
+MOL_STUDENT = ["--gnn", "gcn", "--hidden_channels", "64", "--num_layers", "2",
+               "--teacher_gnn", "gine", "--teacher_hidden", "300", "--teacher_layers", "5"]
+MOL_NCE = ["--training", "nce", "--kd_and_aux", "--beta", "0.5",
+           "--nce_T", "0.075"]  # experiments/molhiv.json, gcn-gine/nce
+MOL_EPOCHS = 1
+MOL_PROFILE_STEPS = 50
+MOL_ROOT = os.path.join(OUT_DIR, "mol_cache")
+MOL_EXPT = "chip_smoke_mol"
+
+
+def _mol_model_launches(conv, layers, vn):
+    """K1 launches of one ``MolGNN`` forward and of its backward, from the
+    code (``models/mol.py``): a forward sums each layer's messages (PNA: the
+    mean and then the variance), pools after each layer but the last for the
+    virtual node and pools the mean at the end; a backward sums the senders
+    gather of each layer (PNA: also its receivers gather and its mean
+    gather) and the virtual node's gather before each layer. The sums'
+    backward is a gather, not K1."""
+    fwd = (2 if conv == "pna" else 1) * layers + (layers - 1 if vn else 0) + 1
+    bwd = (3 if conv == "pna" else 1) * layers + (layers if vn else 0)
+    return fwd, bwd
+
+
+def _mol_launches(counts, student, teacher=None):
+    """K1 launches of ``MOL_EPOCHS`` epochs of ``MolTrainer`` on ``counts``
+    molecules: each train step the student's forward and backward and the
+    online teacher's forward; each evaluation one student forward a batch of
+    the three splits. ``student`` / ``teacher`` are ``(conv, layers,
+    virtual_node)``."""
+    train = -(-counts["n_train"] // MOL_BATCH)
+    evals = train + sum(-(-counts[k] // MOL_BATCH) for k in ("n_valid", "n_test"))
+    fwd, bwd = _mol_model_launches(*student)
+    t_fwd = _mol_model_launches(*teacher)[0] if teacher else 0
+    return MOL_EPOCHS * (train * (fwd + bwd + t_fwd) + evals * fwd)
+
+
+def _mol_dataset():
+    from efficient_gnns_tpu_torch.data import synthetic_molhiv_dataset
+
+    t0 = time.time()
+    ds = synthetic_molhiv_dataset(**MOL_COUNTS, seed=42)
+    atoms = [m.num_nodes for m in ds.train]
+    bonds = [len(m.senders) for m in ds.train]
+    print(f"molhiv-shaped dataset built in {time.time() - t0:.1f} s: "
+          f"{len(ds.train)}/{len(ds.valid)}/{len(ds.test)} molecules, atoms mean "
+          f"{sum(atoms) / len(atoms):.2f} max {max(atoms)}, directed bonds mean "
+          f"{sum(bonds) / len(bonds):.2f} max {max(bonds)}, "
+          f"{100 * sum(m.label for m in ds.train) / len(ds.train):.1f}% positive, "
+          f"mean_log_degree {ds.mean_log_degree:.4f}", flush=True)
+    return ds
+
+
+def phase_mol_reference():
+    """``MolGNN`` on the card against the same module on the CPU (which the
+    tests hold against the JAX package), same start, dropout 0, on a packed
+    batch of 16 synthetic molecules, 3 layers of 16, for ``gine`` with the
+    virtual node, ``gin``, ``gcn`` and ``pna``: the forward (rtol 1e-5 / atol
+    1e-5), the train-mode BatchNorm statistics (the same) and every
+    parameter's gradient (rtol 1e-4, atol 1e-5 times the largest). Then
+    ``MolTrainer`` on the card against the CPU, 2 epochs each of
+    ``supervised`` (GIN-E with the virtual node), ``kd`` (GCN), ``nce
+    --kd_and_aux`` (GCN) and ``gpw`` (GIN) from a 2 x 24 GIN-E teacher,
+    per-epoch losses within rtol 1e-4. Then, at the teacher's width (300 x 5,
+    dropout 0.5) on a batch of 32, one ``supervised`` train step taken twice
+    from one state (two trainers of one seed) gives the same bits, for
+    GIN-E with the virtual node and for PNA, with K1's launches of the step
+    checked. Then the evaluation path at that width: a GIN-E takes 4 train
+    steps on the card, and its eval-mode scores of the batch of 32 it keeps
+    on the card agree with the CPU's from the same weights and running
+    statistics (rtol / atol 1e-4). Returns failures."""
+    import numpy as np
+    import torch
+
+    from efficient_gnns_tpu_torch.data import MolBatcher, roc_auc, synthetic_molhiv_dataset
+    from efficient_gnns_tpu_torch.models import MolGNN
+    from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
+    from efficient_gnns_tpu_torch.train import DistillConfig, MolTrainer
+
+    failures = []
+    ds = synthetic_molhiv_dataset(n_train=48, n_valid=16, n_test=16, seed=2)
+    mb = next(MolBatcher(ds.train, 16, 24).epoch(1))
+    for conv, vn in (("gine", True), ("gin", False), ("gcn", False), ("pna", False)):
+        res = {}
+        for dev in ("cpu", DEVICE):
+            model = MolGNN(conv, 16, 1, 3, dropout=0.0, virtual_node=vn, pna_towers=4,
+                           pna_delta=ds.mean_log_degree, seed=3, device=dev)
+            b = mb.to(dev)
+            out, feat = model(b.batch, b.atoms, b.bonds)
+            (torch.sin(out).sum() + torch.sin(feat).sum()).backward()
+            res[dev] = ({"out": out.detach().cpu(), "feat": feat.detach().cpu(),
+                         **{k: v.cpu() for k, v in model.named_buffers() if "running" in k}},
+                        {k: p.grad.cpu() for k, p in model.named_parameters()})
+        (vals, grads), (cvals, cgrads) = res[DEVICE], res["cpu"]
+        scale = max(float(g.abs().max()) for g in cgrads.values())
+        v_err = max(float((vals[k] - cvals[k]).abs().max()) for k in cvals)
+        g_err = max(float((grads[k] - cgrads[k]).abs().max()) for k in cgrads)
+        ok = (all(torch.allclose(vals[k], cvals[k], rtol=1e-5, atol=1e-5) for k in cvals)
+              and all(torch.allclose(grads[k], cgrads[k], rtol=1e-4, atol=1e-5 * scale)
+                      for k in cgrads))
+        print(f"mol reference {conv}{' +vn' if vn else ''}: cuda vs cpu module, forward and "
+              f"BN statistics max_abs_err={v_err:.3e}, {len(grads)} gradients max_abs_err="
+              f"{g_err:.3e} (largest gradient {scale:.3e}) {'ok' if ok else 'MISMATCH'}",
+              flush=True)
+        if not ok:
+            failures.append(f"mol reference {conv}: the card's module disagrees with the CPU")
+    for mode, kd_aux, conv in (("supervised", False, "gine"), ("kd", False, "gcn"),
+                               ("nce", True, "gcn"), ("gpw", False, "gin")):
+        hist = {}
+        for dev in ("cpu", DEVICE):
+            cfg = DistillConfig(training=mode, kd_and_aux=kd_aux, lr=0.003, alpha=0.5,
+                                kd_T=1.0, beta=0.5, max_samples=16, proj_dim=8)
+            teacher = MolGNN("gine", 24, 1, 2, virtual_node=True, seed=1, device=dev)
+            student = MolGNN(conv, 16, 1, 2, dropout=0.0, virtual_node=conv == "gine",
+                             seed=0, device=dev)
+            tr = MolTrainer(cfg, ds, student, teacher=teacher, batch_size=16, max_atoms=24,
+                            seed=0, device=dev)
+            hist[dev] = np.array([[m["loss"], m["loss_cls"], m["loss_aux"]]
+                                  for m in (tr.train_epoch(e) for e in (1, 2))])
+        got, want = hist[DEVICE], hist["cpu"]
+        print(f"mol reference trainer {mode}{' --kd_and_aux' if kd_aux else ''} ({conv}): "
+              f"cuda vs cpu, 2 epochs, losses {got[:, 0].tolist()} max_abs_err="
+              f"{float(np.abs(got - want).max()):.3e}", flush=True)
+        if not (np.isfinite(got).all() and np.allclose(got, want, rtol=1e-4, atol=1e-7)):
+            failures.append(f"mol reference trainer {mode}: the card's losses disagree")
+    wide = synthetic_molhiv_dataset(n_train=64, n_valid=1, n_test=1, seed=4)
+    for conv, vn in (("gine", True), ("pna", False)):
+        steps = []
+        for _ in range(2):
+            model = MolGNN(conv, 300, 1, 5, dropout=0.5, virtual_node=vn, pna_towers=4,
+                           pna_delta=wide.mean_log_degree, seed=7, device=DEVICE)
+            tr = MolTrainer(DistillConfig(lr=0.001), wide, model, seed=0, device=DEVICE)
+            b = next(tr.batcher.epoch(1)).to(DEVICE)
+            tr.modules.train()
+            tr.generator.manual_seed(11)
+            csr_segment_sum.launches = 0
+            loss = tr._train_step(b)
+            torch.cuda.synchronize()
+            steps.append((loss.cpu(), [p.detach().cpu() for p in model.parameters()],
+                          csr_segment_sum.launches))
+        same = torch.equal(steps[0][0], steps[1][0]) and all(
+            torch.equal(a, b) for a, b in zip(steps[0][1], steps[1][1]))
+        want = sum(_mol_model_launches(conv, 5, vn))
+        print(f"mol reference {conv}{' +vn' if vn else ''} 300 x 5: one train step twice from "
+              f"one state: {'the same bits' if same else 'DIFFERENT BITS'} (loss "
+              f"{steps[0][0][0].item():.6f}, {len(steps[0][1])} parameters); K1 launches a "
+              f"step {steps[0][2]} (expected {want})", flush=True)
+        if not same:
+            failures.append(f"mol reference {conv}: a repeated train step gives other bits")
+        if steps[0][2] != want:
+            failures.append(f"mol reference {conv}: {steps[0][2]} K1 launches a step")
+    evald = synthetic_molhiv_dataset(n_train=128, n_valid=32, n_test=1, seed=5)
+    model = MolGNN("gine", 300, 1, 5, dropout=0.5, virtual_node=True, seed=7, device=DEVICE)
+    tr = MolTrainer(DistillConfig(lr=0.001), evald, model, seed=0, device=DEVICE)
+    tr.train_epoch(1)
+    scores, labels = tr.scores("valid")
+    cpu = MolGNN("gine", 300, 1, 5, dropout=0.5, virtual_node=True, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval()
+    with torch.no_grad():
+        c_scores = torch.cat([cpu(mb.batch, mb.atoms, mb.bonds)[0][:mb.batch.n_graph, 0]
+                              for mb in MolBatcher(evald.valid, 32, 32, shuffle=False).epoch(0)])
+    c_scores = c_scores.numpy()
+    err = float(np.abs(scores - c_scores).max())
+    ok = scores.shape == c_scores.shape and np.allclose(scores, c_scores, rtol=1e-4, atol=1e-4)
+    print(f"mol reference gine +vn 300 x 5 evaluation: after 4 train steps on the card, the "
+          f"eval-mode scores of its kept batch of 32 against the same weights and running "
+          f"statistics on the cpu: max_abs_err={err:.3e} (std {scores.std():.4f} / "
+          f"{c_scores.std():.4f}), ROC-AUC {roc_auc(scores, labels):.4f} / "
+          f"{roc_auc(c_scores, labels):.4f} {'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        failures.append("mol reference gine 300 x 5: the card's evaluation disagrees")
+    return failures
+
+
+def _mol_k1_case(name, inp, src, ro, split, library, on_main_path=True, extra=None):
+    """K1 (no weights) on ``inp`` against its plain version (max error
+    against 1e-5 + 1e-5 * sum |terms| per output, the same bits over two
+    launches), its time, the plain version's, one PyTorch call's
+    (``library``: ``torch.segment_reduce`` for a sum over consecutive rows,
+    ``index_add_`` for a gather's backward) and its bound: each summed input
+    row read once (the real ones, ``ro[-1]``), the index and offsets, every
+    output row written once. Returns (record, failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum, csr_segment_sum_plain
+
+    e = int(ro[-1])
+    rows, f = ro.numel() - 1, inp.shape[1]
+    got = csr_segment_sum(inp, src, ro, None, split)
+    want = csr_segment_sum_plain(inp, src, ro)
+    abs_sum = csr_segment_sum_plain(inp.abs(), src, ro)
+    diff = (got - want).abs()
+    err = float(diff.max())
+    ok = bool((diff <= TOL + TOL * abs_sum).all()) and got.shape == (rows, f)
+    lib = library()
+    lib_err = float((lib - got).abs().max())
+    ok = ok and bool(((lib - got).abs() <= TOL + TOL * abs_sum).all())
+    same_bits = torch.equal(got, csr_segment_sum(inp, src, ro, None, split))
+    ms = _time_ms(lambda: csr_segment_sum(inp, src, ro, None, split), 20)
+    device_ms = _device_ms(lambda: csr_segment_sum(inp, src, ro, None, split))
+    plain_ms = _time_ms(lambda: csr_segment_sum_plain(inp, src, ro), 5)
+    library_ms = _library_ms(name, library)
+    library_device_ms = _device_ms(library)
+    n_bytes = e * f * inp.element_size() + e * 4 + (rows + 1) * 4 + rows * f * 4
+    bound_ms, bound_by = _bound(n_bytes, e * f)
+    record = {"name": name, "route": "cuda",
+              "source": "efficient_gnns_tpu_torch/ops/cuda/csrc/segment_sum.cu",
+              "replaces": "efficient_gnns_tpu/ops/pallas/segment_matmul.py:162",
+              "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+              "on_main_path": on_main_path, "device_ms": device_ms,
+              "library_device_ms": library_device_ms,
+              "shape": {"rows": rows, "E": e, "F": f, **(extra or {})}}
+    print(f"  {name}: rows={rows} summed rows={e} max_abs_err={err:.3e} (library "
+          f"{lib_err:.3e}) {'ok' if ok else 'MISMATCH'} ms={ms:.4f} device_ms={device_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms} (device {library_device_ms:.4f}) "
+          f"bound_ms={bound_ms:.5f} "
+          f"({bound_by}) two launches {'equal' if same_bits else 'DIFFER'}", flush=True)
+    failures = [] if ok else [name]
+    if not same_bits:
+        failures.append(f"{name}: not the same bits twice")
+    return record, failures
+
+
+def phase_mol_kernels(ds):
+    """K1 at the mol paths' shapes on the first packed train batch of the
+    full-count data (batch 32: 1,024 nodes, 3,072 edges; and batch 128 of
+    ``experiments/r5_workloads2.sh:36``, off the CLI's path): a conv's
+    aggregation (the edges' messages summed into their receivers, K1 with
+    the identity) at F = 300 (teachers) and 64 (student), the senders
+    gather's backward over the transpose CSR at the same widths, the pool
+    over ``graph_offsets`` at F = 300. Each against its plain version and
+    one PyTorch call (``torch.segment_reduce`` with the CSR offsets; for the
+    gather's backward ``index_add_``, what ``index_select``'s backward runs).
+    Returns (records, failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.data import MolBatcher
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    records, failures = [], []
+    for batch, widths, on_path in ((MOL_BATCH, (300, 64), True), (128, (300,), False)):
+        t0 = time.perf_counter()
+        mb = next(MolBatcher(ds.train, batch, 32).epoch(1))
+        pack_ms = (time.perf_counter() - t0) * 1e3
+        b = mb.batch.to(DEVICE)
+        g = b.graph
+        print(f"mol kernels, batch {batch}: {b.n_graph} molecules, {g.n_edge} bonds of "
+              f"E_pad {g.num_edges_padded}, {int(b.graph_offsets[-1])} atoms of N_pad "
+              f"{g.num_nodes}; longest row fwd / bwd / pool "
+              f"{[int((o[1:] - o[:-1]).max()) for o in (g.row_offsets, g.t_row_offsets, b.graph_offsets)]}"
+              f"; packed in {pack_ms:.1f} ms (first batch, host)", flush=True)
+        e, n = g.n_edge, int(b.graph_offsets[-1])
+        for f in widths:
+            msg = torch.randn(g.num_edges_padded, f, generator=gen, device=DEVICE)
+            ro64 = g.row_offsets.long()
+            cases = [
+                (f"K1 csr_segment_sum mol b{batch} aggregate F={f}", msg,
+                 b.ident[:g.num_edges_padded], g.row_offsets, g.row_split,
+                 lambda msg=msg, ro64=ro64: torch.segment_reduce(msg[:e], "sum",
+                                                                 offsets=ro64, axis=0)),
+                (f"K1 csr_segment_sum mol b{batch} senders gather bwd F={f}", msg, g.csc_perm,
+                 g.t_row_offsets, g.t_row_split,
+                 lambda msg=msg: torch.zeros(g.num_nodes, f, device=DEVICE).index_add_(
+                     0, g.senders[:e].long(), msg[:e])),
+            ]
+            if f == 300:
+                x = torch.randn(g.num_nodes, f, generator=gen, device=DEVICE)
+                go64 = b.graph_offsets.long()
+                cases.append((f"K1 csr_segment_sum mol b{batch} pool F={f}", x,
+                              b.ident[:g.num_nodes], b.graph_offsets, b.graph_split,
+                              lambda x=x, go64=go64: torch.segment_reduce(
+                                  x[:n], "sum", offsets=go64, axis=0)))
+            for name, inp, src, ro, split, lib in cases:
+                rec, fails = _mol_k1_case(name, inp, src, ro, split, lib, on_main_path=on_path,
+                                          extra={"batch": batch})
+                records.append(rec)
+                failures += fails
+    torch.cuda.synchronize()
+    return records, failures
+
+
+def _mol_run(tag, argv, expected):
+    """One run of ``cli.mol`` with every kernel's counter read around it;
+    returns (summary, K1 launches, failures)."""
+    import math
+
+    from efficient_gnns_tpu_torch.cli import mol
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    summary = mol.main(["--epochs", str(MOL_EPOCHS), "--runs", "1", "--out_dir", OUT_DIR,
+                        "--expt_name", MOL_EXPT, "--device", DEVICE, *argv])
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {k: 0 for k in counters}
+    want["K1"] = expected
+    secs = summary["seconds"]["run0"]
+    losses = summary["losses"]["run0"]
+    print(f"mol slice {tag}: launches {launches} (expected K1 {expected} and nothing else); "
+          f"train epochs (host clock) {[round(s['train'], 2) for s in secs]} s, evaluations "
+          f"{[round(s['eval'], 2) for s in secs]} s; losses {[round(v, 4) for v in losses]}; "
+          f"AUC train/valid/test by epoch "
+          f"{[[round(a, 4) for a in aucs] for aucs in summary['aucs']['run0']]}", flush=True)
+    failures = []
+    if launches != want:
+        failures.append(f"mol slice {tag}: launches {launches}")
+    if not all(math.isfinite(v) for v in losses) or not all(
+            math.isfinite(a) for aucs in summary["aucs"]["run0"] for a in aucs):
+        failures.append(f"mol slice {tag}: losses or AUCs not finite")
+    return summary, launches["K1"], failures
+
+
+def phase_mol_slice():
+    """``cli.mol`` on the synthetic set at ``MOL_SLICE``'s counts (a quarter
+    of ogbg-molhiv's 32,901 train molecules, its 4,113 valid and 4,113 test
+    ones), full width, batch 32, one run of ``MOL_EPOCHS`` epochs each: the GIN-E teacher (300 x 5, virtual node) writing its
+    best-validation checkpoint, the GCN student (2 x 64) from it in ``kd``
+    and in ``nce --kd_and_aux`` (``experiments/molhiv.json``'s
+    ``gcn-gine/kd`` and ``gcn-gine/nce`` points), then the PNA teacher (300 x
+    5, 4 towers). K1 counted around each run against ``_mol_launches``,
+    nothing else launched. The checkpoint is removed. Returns (K1 launches,
+    failures)."""
+    from efficient_gnns_tpu_torch.cli.mol import checkpoint_path
+
+    gine, pna, gcn = ("gine", 5, True), ("pna", 5, False), ("gcn", 2, False)
+    failures, k1 = [], 0
+    try:
+        _, n, fails = _mol_run("teacher gine 300 x 5 supervised",
+                               MOL_DATA + ["--gnn", "gine"] + MOL_TEACHER, _mol_launches(MOL_SLICE, gine))
+        k1, failures = k1 + n, failures + fails
+        ckpt = checkpoint_path(OUT_DIR, MOL_EXPT, "gine", 0)
+        if not os.path.exists(ckpt):
+            return k1, failures + ["mol slice: no teacher checkpoint"]
+        print(f"mol checkpoint: {os.path.getsize(ckpt)} bytes", flush=True)
+        for tag, argv in (("student gcn 2 x 64 kd", ["--training", "kd"]),
+                          ("student gcn 2 x 64 nce --kd_and_aux", MOL_NCE)):
+            _, n, fails = _mol_run(tag, MOL_DATA + MOL_STUDENT + argv + [
+                "--teacher_path", os.path.dirname(ckpt)], _mol_launches(MOL_SLICE, gcn, gine))
+            k1, failures = k1 + n, failures + fails
+        _, n, fails = _mol_run("teacher pna 300 x 5 supervised",
+                               MOL_DATA + ["--gnn", "pna"] + MOL_TEACHER, _mol_launches(MOL_SLICE, pna))
+        k1, failures = k1 + n, failures + fails
+    finally:  # the checkpoints are not kept
+        shutil.rmtree(os.path.join(OUT_DIR, "mol_ckpt"), ignore_errors=True)
+    return k1, failures
+
+
+def _write_ints_gz(path, arr):
+    """An int table as gzip CSV text (level 1), formatted in one ``%`` pass
+    (``np.savetxt`` formats row by row: 13 s at ogbg-molhiv's size)."""
+    import gzip
+
+    import numpy as np
+
+    arr = np.asarray(arr).reshape(len(arr), -1)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    line = ",".join(["%d"] * arr.shape[1]) + "\n"
+    with gzip.open(path, "wt", compresslevel=1) as f:
+        f.write((line * arr.shape[0]) % tuple(arr.ravel().tolist()))
+
+
+def phase_mol_cache(ds):
+    """``ds`` (the full-count synthetic set) written as OGB's ogbg-molhiv raw
+    cache (train, valid, test in order, the splits their positions), read
+    back by ``data/molhiv.py::load_molhiv`` (every molecule equal to the
+    written one), then ``cli.mol --dataset ogbg-molhiv`` trains the GCN
+    student (2 x 64, ``supervised``) one epoch on it, K1 counted. The cache
+    is removed. Returns (K1 launches, failures)."""
+    import numpy as np
+
+    from efficient_gnns_tpu_torch.data import load_molhiv
+    from efficient_gnns_tpu_torch.data.molhiv import molhiv_raw_files
+
+    files = molhiv_raw_files(os.path.join(MOL_ROOT, "ogbg_molhiv"))
+    mols = ds.train + ds.valid + ds.test
+    failures, k1 = [], 0
+    try:
+        t0 = time.perf_counter()
+        _write_ints_gz(files["edge.csv.gz"], np.concatenate(
+            [np.stack([m.senders, m.receivers], 1) for m in mols]))
+        _write_ints_gz(files["edge-feat.csv.gz"], np.concatenate([m.bond_feats for m in mols]))
+        _write_ints_gz(files["node-feat.csv.gz"], np.concatenate([m.atom_feats for m in mols]))
+        _write_ints_gz(files["num-node-list.csv.gz"], [m.num_nodes for m in mols])
+        _write_ints_gz(files["num-edge-list.csv.gz"], [len(m.senders) for m in mols])
+        _write_ints_gz(files["graph-label.csv.gz"], [int(m.label) for m in mols])
+        start = 0
+        for split in ("train", "valid", "test"):
+            k = len(getattr(ds, split))
+            _write_ints_gz(files[split], np.arange(start, start + k))
+            start += k
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(p) for p in files.values())
+        t0 = time.perf_counter()
+        got = load_molhiv(MOL_ROOT)
+        load_s = time.perf_counter() - t0
+        same = True
+        for split in ("train", "valid", "test"):
+            a, b = getattr(ds, split), getattr(got, split)
+            same = same and len(a) == len(b) and [m.num_nodes for m in a] == [
+                m.num_nodes for m in b] and [m.label for m in a] == [m.label for m in b]
+            for f in ("senders", "receivers", "atom_feats", "bond_feats"):
+                same = same and np.array_equal(np.concatenate([getattr(m, f) for m in a]),
+                                               np.concatenate([getattr(m, f) for m in b]))
+        print(f"mol cache: {len(mols)} molecules, {size} bytes; write {write_s:.2f} s (gzip "
+              f"level 1), read {load_s:.2f} s (gzip + np.loadtxt); every molecule equal to "
+              f"the written one: {same}; mean_log_degree {got.mean_log_degree:.4f} (the "
+              f"loader's, over 1,000 train molecules; the generator's over 100: "
+              f"{ds.mean_log_degree:.4f})", flush=True)
+        if not same:
+            failures.append("mol cache: the loaded dataset differs from the written one")
+        del got
+        _, k1, fails = _mol_run("cache gcn 2 x 64 supervised", [
+            "--dataset", "ogbg-molhiv", "--data_root", MOL_ROOT, "--gnn", "gcn"],
+            _mol_launches(MOL_COUNTS, ("gcn", 2, False)))
+        failures += fails
+    finally:  # the cache and the run's checkpoint are not kept
+        shutil.rmtree(MOL_ROOT, ignore_errors=True)
+        shutil.rmtree(os.path.join(OUT_DIR, "mol_ckpt"), ignore_errors=True)
+    return k1, failures
+
+
+def phase_mol_profile(ds):
+    """A chunk of ``MOL_PROFILE_STEPS`` train steps (batch 32, the first
+    molecules of the full-count set) of the GIN-E teacher (300 x 5, virtual
+    node, ``supervised``) and of the GCN student (2 x 64, ``kd`` with a
+    random GIN-E teacher online) through ``MolTrainer``: a warm chunk, then
+    one steady chunk (host clock, before any profile; K1 counted against
+    ``_mol_launches``), the host's pack time a batch alone, one evaluation
+    of the valid split (kept on the device), the host functions of one
+    chunk by own time (cProfile), and one profiled chunk (device busy and
+    idle share, top device ops). Returns (K1 launches of the steady chunks,
+    failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.data import MolDataset
+    from efficient_gnns_tpu_torch.models import MolGNN
+    from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
+    from efficient_gnns_tpu_torch.train import DistillConfig, MolTrainer
+
+    chunk = MolDataset(train=ds.train[: MOL_PROFILE_STEPS * MOL_BATCH], valid=ds.valid,
+                       test=ds.test, num_tasks=1, mean_log_degree=ds.mean_log_degree)
+    gine, gcn = ("gine", 5, True), ("gcn", 2, False)
+    failures, k1 = [], 0
+    for tag, cfg, student, teacher in (
+            ("mol_teacher", DistillConfig(hidden=300, num_layers=5, lr=0.001), gine, None),
+            ("mol_student_kd", DistillConfig(training="kd", hidden=64, num_layers=2, lr=0.001,
+                                             alpha=0.5, kd_T=1.0), gcn, gine)):
+        conv, layers, vn = student
+        model = MolGNN(conv, cfg.hidden, 1, layers, virtual_node=vn, device=DEVICE)
+        online = (MolGNN("gine", 300, 1, 5, virtual_node=True, seed=1, device=DEVICE)
+                  if teacher else None)
+        tr = MolTrainer(cfg, chunk, model, teacher=online, device=DEVICE)
+        tr.train_epoch(1)  # warm-up
+        csr_segment_sum.launches = 0
+        ms = _steady_ms(lambda: tr.train_epoch(2), MOL_PROFILE_STEPS)
+        launches = csr_segment_sum.launches
+        fwd, bwd = _mol_model_launches(*student)
+        want = MOL_PROFILE_STEPS * (fwd + bwd + (_mol_model_launches(*teacher)[0]
+                                                 if teacher else 0))
+        k1 += launches
+        t0 = time.perf_counter()
+        n = sum(1 for _ in tr.batcher.epoch(3))
+        pack_ms = (time.perf_counter() - t0) * 1e3 / n
+        tr.evaluate("valid")  # packs and keeps the valid batches
+        eval_ms = _steady_ms(lambda: tr.evaluate("valid"), 1)
+        print(f"{tag} steady train step (a chunk of {MOL_PROFILE_STEPS}, host clock, packing "
+              f"included, before any mol profile): {ms:.3f} ms; the host's pack time a batch "
+              f"alone {pack_ms:.3f} ms; K1 launches {launches} (expected {want}); one "
+              f"evaluation of the valid split ({len(chunk.valid)} molecules, batches on the "
+              f"device) {eval_ms:.1f} ms", flush=True)
+        if launches != want:
+            failures.append(f"{tag}: {launches} K1 launches in a chunk")
+        prof = cProfile.Profile()
+        prof.enable()
+        tr.train_epoch(4)
+        prof.disable()
+        top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:10]
+        print(f"{tag} host functions by own time (cProfile, one chunk of "
+              f"{MOL_PROFILE_STEPS} steps): " + ", ".join(
+                  f"{fn[2] if fn[0] == '~' else f'{os.path.basename(fn[0])}:{fn[1]} {fn[2]}'} "
+                  f"{st[2] * 1e3:.1f} ms {st[1]}x" for fn, st in top), flush=True)
+        busy = _profile(tag, lambda: tr.train_epoch(3), 1,
+                        also=("split_segment_sum", "embedding", "index"))
+        print(f"{tag}: device busy {busy:.1f} ms of the steady {ms * MOL_PROFILE_STEPS:.1f} ms "
+              f"chunk: {100 * (1 - busy / (ms * MOL_PROFILE_STEPS)):.1f}% idle", flush=True)
+        del tr, model, online
+    return k1, failures
+
+
 PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
           "thin_group_sweep", "reference", "teacher_reference", "hub_attention",
           "sign_reference", "slice", "teacher_slice", "sign_slice", "checkpoint",
           "ogbn_cache", "runtime_spmm", "teacher_profile", "student_profile", "sign_profile",
           "ppi_kernels", "ppi_reference", "ppi_slice", "ppi_profile", "mag_kernels",
-          "mag_reference", "mag_slice", "mag_profile")
+          "mag_reference", "mag_slice", "mag_profile", "mol_reference", "mol_kernels",
+          "mol_slice", "mol_cache", "mol_profile")
 
 
 def main(argv=None) -> int:
@@ -2450,6 +2970,17 @@ def main(argv=None) -> int:
         more, fails = run("mag_profile", phase_mag_profile, mag) or (0, [])
         mag_k1, failures = mag_k1 + more, failures + fails
         del mag
+    failures += run("mol_reference", phase_mol_reference) or []
+    mol_k1, fails = run("mol_slice", phase_mol_slice) or (0, [])
+    failures += fails
+    if chosen & {"mol_kernels", "mol_cache", "mol_profile"}:
+        molds = _mol_dataset()
+        recs, fails = run("mol_kernels", phase_mol_kernels, molds) or ([], [])
+        records, failures = records + recs, failures + fails
+        for name, phase in (("mol_cache", phase_mol_cache), ("mol_profile", phase_mol_profile)):
+            more, fails = run(name, phase, molds) or (0, [])
+            mol_k1, failures = mol_k1 + more, failures + fails
+        del molds
     run("student_profile", phase_student_profile, ds)
     run("sign_profile", phase_sign_profile, ds)
     if "teacher_profile" in chosen:
@@ -2463,7 +2994,7 @@ def main(argv=None) -> int:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
     launches["K1"] = (k1_launches + launches.get("K1", 0) + rt_launches.get("K1", 0)
-                      + sign_launches + ck_launches + ogbn_launches + mag_k1)
+                      + sign_launches + ck_launches + ogbn_launches + mag_k1 + mol_k1)
     launches["K3"] = launches.get("K3", 0) + rt_launches.get("K3", 0)
     for k, n in ppi_launches.items():
         launches[k] = launches.get(k, 0) + n

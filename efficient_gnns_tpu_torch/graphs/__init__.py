@@ -1,4 +1,5 @@
-from efficient_gnns_tpu_torch.graphs.container import Graph
+from efficient_gnns_tpu_torch.graphs.batching import pack_graphs, pack_node_features
+from efficient_gnns_tpu_torch.graphs.container import BatchedGraphs, Graph
 from efficient_gnns_tpu_torch.graphs.hetero import GroupedHetero, group_hetero_graph, mag_preprocess
 from efficient_gnns_tpu_torch.graphs.hub_dense import HubPartition, auto_hub_size
 from efficient_gnns_tpu_torch.graphs.preprocess import (
@@ -18,6 +19,7 @@ from efficient_gnns_tpu_torch.graphs.row_split import (
 )
 
 __all__ = [
+    "BatchedGraphs",
     "Graph",
     "GroupedHetero",
     "HubPartition",
@@ -31,6 +33,8 @@ __all__ = [
     "group_hetero_graph",
     "induced_subgraph",
     "mag_preprocess",
+    "pack_graphs",
+    "pack_node_features",
     "pad_length",
     "sddmm_by_split",
     "segment_reduce_by_split",

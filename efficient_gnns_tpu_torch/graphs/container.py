@@ -28,6 +28,10 @@ The tall typed layout of the sampled R-GCN (``sampling/saint.py``) has
 carries the row split of ``row_offsets[:nb + 1]`` (``dst_row_split``), so
 that its forward aggregation writes the ``nb`` rows that can be non-zero and
 not the ``R * nb`` (the counterpart of the JAX ``block_max_dst``).
+
+:class:`BatchedGraphs` is a batch of small graphs (molecules) packed into one
+such graph (``graphs/batching.py::pack_graphs``), with the CSR offsets of the
+nodes of each graph, so that a pool over the graphs is a CSR segment sum too.
 """
 
 from __future__ import annotations
@@ -164,3 +168,56 @@ class Graph:
             edge_type=None if self.edge_type is None else self.edge_type[self.csc_perm.long()],
             num_edge_types=self.num_edge_types,
         )
+
+
+@dataclasses.dataclass
+class BatchedGraphs:
+    """A batch of graphs packed into one padded :class:`Graph` (pad and mask;
+    counterpart of the JAX ``BatchedGraphs``).
+
+    Node ids are offset per graph, so the nodes of graph ``k`` are the rows
+    ``graph_offsets[k]:graph_offsets[k + 1]`` and ``node_graph_ids`` is
+    ascending: every pool over the graphs is a sorted segment sum over
+    ``graph_offsets``. What the sums need is built once on the host, when the
+    batch is packed: the row split of ``graph_offsets`` (recorded with it, so
+    that K1 takes it without a host copy) and an identity index.
+
+    Attributes:
+      graph: the packed graph (``n_node_valid`` = the real nodes).
+      node_graph_ids: int32[N_pad] graph of each node; ``num_graphs`` on
+        padding nodes.
+      n_graph: number of real graphs (the first ``n_graph``).
+      num_graphs: padded graph count (padded graphs are empty rows).
+      graph_offsets: int32[num_graphs + 1] CSR offsets of each graph's nodes;
+        ``graph_offsets[-1]`` is the number of real nodes.
+      graph_split: the row split of ``graph_offsets``.
+      graph_mask: bool[num_graphs], True for the first ``n_graph``.
+      ident: int32[max(N_pad, E_pad)] ``0, 1, 2, ...``: K1's gather index
+        for a sum over consecutive rows.
+    """
+
+    graph: Graph
+    node_graph_ids: torch.Tensor
+    n_graph: int
+    num_graphs: int
+    graph_offsets: torch.Tensor
+    graph_split: RowSplit
+    graph_mask: torch.Tensor
+    ident: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.node_graph_ids.device
+
+    def to(self, device) -> "BatchedGraphs":
+        """A copy with every tensor (and both row splits) on ``device``; the
+        recorded (split, offsets) pairs of the graph and of ``graph_offsets``
+        stay recorded."""
+        moved = dataclasses.replace(
+            self, graph=self.graph.to(device), node_graph_ids=self.node_graph_ids.to(device),
+            graph_offsets=self.graph_offsets.to(device),
+            graph_split=self.graph_split.to(device), graph_mask=self.graph_mask.to(device),
+            ident=self.ident.to(device))
+        if is_recorded_pair(self.graph_split, self.graph_offsets):
+            record_pair(moved.graph_split, moved.graph_offsets)
+        return moved

@@ -10,7 +10,9 @@ that layout (its ``GCNConv.weight``, ``SAGEConv.weight`` / ``root_weight``,
 ``FeedForwardNet.weights``, ``RGCNConv.rel_weights`` are applied as
 ``x @ weight``), so kernels are
 copied, not transposed; ``attn_l`` / ``attn_r`` and ``att_src`` /
-``att_dst`` keep their ``[D, H]`` layout too.
+``att_dst`` keep their ``[D, H]`` layout too. ``mol_from_jax_params`` does
+the same for the JAX ``MolGNN`` (``models/mol.py``), whose flax names are
+its own.
 """
 
 from __future__ import annotations
@@ -103,4 +105,40 @@ def from_jax_params(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Te
     ``ProjectionGCD``) from the JAX module's ``params`` and ``batch_stats``."""
     state = _rename(_flatten(params), _PARAM_RULES)
     state.update(_rename(_flatten(batch_stats), _STAT_RULES))
+    return state
+
+
+_MOL_PARAM_RULES = (
+    (re.compile(r"CategoricalEncoder_0/emb_(\d+)/embedding"), "atom_encoder.embs.{}"),
+    (re.compile(r"bond_encoder_(\d+)/emb_(\d+)/embedding"), "bond_encoders.{}.embs.{}"),
+    # GINEConv (Dense_0, Dense_1, MaskedBatchNorm_0, eps), GCNMolConv
+    # (Dense_0, root_emb), PNAConv (edge_proj, pre_*, post_*, mix)
+    (re.compile(r"conv_(\d+)/Dense_(\d+)/kernel"), "convs.{}.dense.{}.weight"),
+    (re.compile(r"conv_(\d+)/Dense_(\d+)/bias"), "convs.{}.dense.{}.bias"),
+    (re.compile(r"conv_(\d+)/MaskedBatchNorm_0/(scale|bias)"), "convs.{}.bn.{}"),
+    (re.compile(r"conv_(\d+)/(edge_proj|mix)/kernel"), "convs.{}.{}.weight"),
+    (re.compile(r"conv_(\d+)/(edge_proj|mix)/bias"), "convs.{}.{}.bias"),
+    (re.compile(r"conv_(\d+)/(eps|root_emb|pre_w|pre_b|post_w|post_b)"), "convs.{}.{}"),
+    (re.compile(r"bn_(\d+)/(scale|bias)"), "bns.{}.{}"),
+    # the virtual node's MLPs: Dense_{2i}, Dense_{2i+1} after layer i
+    (re.compile(r"Dense_(\d+)/kernel"), "vn_lins.{}.weight"),
+    (re.compile(r"Dense_(\d+)/bias"), "vn_lins.{}.bias"),
+    (re.compile(r"virtualnode_emb"), "virtualnode_emb"),
+    (re.compile(r"graph_pred/kernel"), "graph_pred.weight"),
+    (re.compile(r"graph_pred/bias"), "graph_pred.bias"),
+)
+_MOL_STAT_RULES = (
+    (re.compile(r"conv_(\d+)/MaskedBatchNorm_0/mean"), "convs.{}.bn.running_mean"),
+    (re.compile(r"conv_(\d+)/MaskedBatchNorm_0/var"), "convs.{}.bn.running_var"),
+    (re.compile(r"bn_(\d+)/mean"), "bns.{}.running_mean"),
+    (re.compile(r"bn_(\d+)/var"), "bns.{}.running_var"),
+)
+
+
+def mol_from_jax_params(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for the port's ``MolGNN`` (any conv, with or without
+    the virtual node) from the JAX ``MolGNN``'s ``params`` and
+    ``batch_stats``."""
+    state = _rename(_flatten(params), _MOL_PARAM_RULES)
+    state.update(_rename(_flatten(batch_stats), _MOL_STAT_RULES))
     return state

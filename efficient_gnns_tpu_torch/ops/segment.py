@@ -47,11 +47,12 @@ def segment_mean(
 
 
 def _segment_extreme(data, segment_ids, num_segments, reduce, fill):
-    ids = segment_ids.long()
-    keep = ids < num_segments
-    out = data.new_full((num_segments,) + tuple(data.shape[1:]), fill)
-    idx = ids[keep].reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data[keep])
-    return out.scatter_reduce_(0, idx, data[keep], reduce=reduce, include_self=True)
+    # out-of-range ids land in one extra row that is dropped: no boolean
+    # mask, so nothing waits for the device
+    ids = segment_ids.long().clamp(max=num_segments)
+    out = data.new_full((num_segments + 1,) + tuple(data.shape[1:]), fill)
+    idx = ids.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    return out.scatter_reduce_(0, idx, data, reduce=reduce, include_self=True)[:num_segments]
 
 
 def segment_max(

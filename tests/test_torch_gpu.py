@@ -13,6 +13,8 @@ summed by PyTorch; the max and the row broadcast are exact. A kernel gives
 the same bits at every launch, and with the row split derived at the call.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -365,3 +367,121 @@ def test_mag_trainer_epoch_on_card_matches_cpu(cuda_device, mode, typed):
     np.testing.assert_allclose(got[:2], want[:2], rtol=1e-4)
     for g, w in zip(got[2:], want[2:]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def _mol_pack(rng):
+    # a long pool row (a molecule above the split threshold whose atom 0
+    # receives a long row of bonds), an atom without bonds and an empty
+    # padded graph
+    from efficient_gnns_tpu_torch.graphs import ROW_SPLIT_THRESHOLD, pack_graphs
+
+    graphs = []
+    for n in (7, ROW_SPLIT_THRESHOLD + 40, 5):
+        s = rng.integers(0, n, size=2 * n)
+        r = rng.integers(0, n, size=2 * n)
+        if n > ROW_SPLIT_THRESHOLD:
+            r[: ROW_SPLIT_THRESHOLD + 20] = 0
+        graphs.append((s, r, n))
+    graphs.append((np.array([0]), np.array([1]), 3))
+    batch, _, _ = pack_graphs(graphs, pad_nodes_to=256, pad_edges_to=512, pad_graphs_to=6)
+    assert batch.graph.row_split.num_long == 1 and batch.graph_split.num_long == 1
+    return batch
+
+
+@pytest.mark.parametrize("f", [300, 64, 7])
+def test_sorted_segment_ops_on_card_match_plain(rng, cuda_device, f):
+    from efficient_gnns_tpu_torch.ops.sorted_segment import (
+        csr_segment_sum_sorted,
+        gather_rows_csr,
+    )
+
+    cpu = _mol_pack(rng)
+    card = cpu.to(cuda_device)
+    sums = {  # data rows, ids and the CSR of each sorted sum
+        "edges": lambda b: (b.graph.receivers, b.graph.row_offsets, b.graph.row_split),
+        "pool": lambda b: (b.node_graph_ids, b.graph_offsets, b.graph_split),
+    }
+    for name, parts in sums.items():
+        ids = parts(cpu)[0]
+        data = torch.from_numpy(rng.normal(size=(ids.shape[0], f)).astype(np.float32))
+        rows = parts(cpu)[1].numel() - 1
+        cot = torch.from_numpy(rng.normal(size=(rows, f)).astype(np.float32))
+        out = {}
+        for b, dev in ((cpu, "cpu"), (card, cuda_device)):
+            x = data.to(dev, copy=True).requires_grad_(True)
+            launches = csr_segment_sum.launches
+            y = csr_segment_sum_sorted(x, *parts(b), b.ident)
+            y.backward(cot.to(dev))
+            out[str(dev)] = (y.detach().cpu(), x.grad.cpu(), csr_segment_sum.launches - launches)
+        got, want = out[str(cuda_device)], out["cpu"]
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+        assert torch.equal(got[1], want[1]) and got[2] == 1, name  # backward: a gather
+        assert torch.equal(got[0], csr_segment_sum_sorted(data.to(cuda_device), *parts(card),
+                                                          card.ident).cpu())
+    gathers = {  # rows of x, index and the transpose CSR of each gather
+        "senders": lambda b: (b.graph.num_nodes, b.graph.senders, b.graph.t_row_offsets,
+                              b.graph.csc_perm, b.graph.t_row_split),
+        "receivers": lambda b: (b.graph.num_nodes, b.graph.receivers, b.graph.row_offsets,
+                                b.ident, b.graph.row_split),
+        "graph ids": lambda b: (b.num_graphs, b.node_graph_ids, b.graph_offsets, b.ident,
+                                b.graph_split),
+    }
+    for name, parts in gathers.items():
+        rows, idx = parts(cpu)[:2]
+        data = torch.from_numpy(rng.normal(size=(rows, f)).astype(np.float32))
+        cot = torch.from_numpy(rng.normal(size=(idx.shape[0], f)).astype(np.float32))
+        out = {}
+        for b, dev in ((cpu, "cpu"), (card, cuda_device)):
+            x = data.to(dev, copy=True).requires_grad_(True)
+            launches = csr_segment_sum.launches
+            y = gather_rows_csr(x, *parts(b)[1:])
+            y.backward(cot.to(dev))
+            out[str(dev)] = (y.detach().cpu(), x.grad.cpu(), csr_segment_sum.launches - launches)
+        got, want = out[str(cuda_device)], out["cpu"]
+        assert torch.equal(got[0], want[0]) and got[2] == 1, name  # forward: a gather
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("conv,mode,kd_and_aux", [("gine", "supervised", False),
+                                                   ("gcn", "nce", True), ("pna", "kd", False)])
+def test_mol_trainer_epoch_on_card_matches_cpu(cuda_device, conv, mode, kd_and_aux):
+    from efficient_gnns_tpu_torch.data import synthetic_molhiv_dataset
+    from efficient_gnns_tpu_torch.models import MolGNN
+    from efficient_gnns_tpu_torch.train import DistillConfig, MolTrainer
+
+    ds = synthetic_molhiv_dataset(n_train=48, n_valid=16, n_test=16, seed=2)
+    cfg = DistillConfig(training=mode, kd_and_aux=kd_and_aux, lr=0.003, alpha=0.5, kd_T=1.0,
+                        beta=0.5, max_samples=16, proj_dim=8)
+    results = {}
+    for dev in ("cpu", cuda_device):  # max_samples at the batch size: no row subset
+        teacher = MolGNN("gine", 24, 1, 2, virtual_node=True, seed=1, device=dev)
+        student = MolGNN(conv, 16, 1, 2, dropout=0.0, virtual_node=conv == "gine",
+                         pna_towers=4, pna_delta=ds.mean_log_degree, device=dev)
+        tr = MolTrainer(cfg, ds, student, teacher=teacher, batch_size=16, max_atoms=24,
+                        seed=0, device=dev)
+        results[str(dev)] = ([tr.train_epoch(e)["loss"] for e in (1, 2)]
+                             + list(tr.evaluate_all()))
+    np.testing.assert_allclose(results[str(cuda_device)][:2], results["cpu"][:2], rtol=1e-4)
+    np.testing.assert_allclose(results[str(cuda_device)][2:], results["cpu"][2:], atol=0.05)
+
+
+def test_mol_batch_moves_to_the_card(rng, cuda_device):
+    from efficient_gnns_tpu_torch.data import MolBatcher, synthetic_molhiv_dataset
+    from efficient_gnns_tpu_torch.graphs.row_split import is_recorded_pair
+
+    ds = synthetic_molhiv_dataset(n_train=40, n_valid=1, n_test=1, seed=1)
+    mb = next(MolBatcher(ds.train, 16, 24).epoch(0))
+    moved = mb.to(cuda_device)
+    torch.cuda.synchronize()
+    for old, new in ((mb.batch.graph, moved.batch.graph), (mb.batch, moved.batch)):
+        for f in dataclasses.fields(old):
+            a, b = getattr(old, f.name), getattr(new, f.name)
+            if isinstance(a, torch.Tensor):
+                assert b.device.type == "cuda" and b.dtype == a.dtype and torch.equal(b.cpu(), a)
+    for a, b in zip(mb[1:], moved[1:]):
+        assert b.device.type == "cuda" and torch.equal(b.cpu(), a)
+    g = moved.batch.graph
+    assert is_recorded_pair(g.row_split, g.row_offsets)
+    assert is_recorded_pair(g.t_row_split, g.t_row_offsets)
+    assert is_recorded_pair(moved.batch.graph_split, moved.batch.graph_offsets)

@@ -39,7 +39,9 @@ def test_port_imports_without_jax():
                  "sampling.minibatch", "sampling.hop_precompute", "train.checkpoint",
                  "train.sign_trainer", "data.ppi", "train.ppi_trainer", "cli.ppi",
                  "graphs.hetero", "data.mag", "native.host", "sampling.saint",
-                 "train.layerwise", "train.mag_trainer", "cli.mag"):
+                 "train.layerwise", "train.mag_trainer", "cli.mag", "graphs.batching",
+                 "ops.sorted_segment", "data.molhiv", "models.mol", "train.mol_trainer",
+                 "cli.mol"):
         assert f"efficient_gnns_tpu_torch.{name}" in modules, name
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
