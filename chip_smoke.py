@@ -149,7 +149,21 @@ it imports nothing of JAX. Phases, each of which must pass:
     through ``cli.mol --dataset ogbg-molhiv``;
 31. a chunk of GIN-E teacher and GCN ``kd`` student steps through
     ``MolTrainer``: the steady step, the host's pack time a batch, an
-    evaluation, and one profiled chunk (busy and idle share, top ops).
+    evaluation, and one profiled chunk (busy and idle share, top ops);
+32. K2 and K4 reading bfloat16 messages against their plain versions at
+    the teacher's arxiv shapes (H x D = 3 x 250 and 1 x 40, forward and
+    transpose CSR), the same bits twice and without the split, with their
+    times, bounds (the bfloat16 bytes), the plain versions' and the library
+    calls' where cuSPARSE takes bfloat16 (``K2 bf16`` / ``K4 bf16`` records,
+    their launches those of phase 33's bfloat16 run);
+33. ``analysis/microbench.py``: ``gat-step --hub 0`` (every teacher layer on
+    ``gat_attention``) train and eval at arxiv shape in float32 and in
+    bfloat16 messages, every kernel's launches counted against
+    ``GAT_STEP_LAUNCHES``, the first-step losses of the two dtypes within
+    ``MICROBENCH_LOSS_RTOL``, the trace of the bfloat16 train step naming
+    K2's and K4's bfloat16 kernels; ``microbench spmm`` at F = 128 with its
+    bound; ``sddmm_dot`` forward (K3) and backward (K1 twice) on the card
+    against the plain versions.
 
 ``--only a,b`` runs the named phases alone (see ``main``). The last lines
 are the kernels' JSON record, the ``nvidia-smi`` line and
@@ -2865,6 +2879,236 @@ def phase_mol_profile(ds):
         del tr, model, online
     return k1, failures
 
+def phase_heads_bf16_kernels(graph):
+    """K2 and K4 reading bfloat16 messages against their plain versions at the
+    teacher's arxiv shapes (``HEADS``; forward and transpose CSR). The plain
+    versions form the same float32 products of the bfloat16 values, so the
+    tolerance is float32's (summation order); the same bits twice and
+    without the row split. Each record has the kernel's time, its bound on
+    the bfloat16 bytes, the plain version's time and, where cuSPARSE takes
+    bfloat16, the library call's (else "refused", with the reason)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops import cuda as K
+
+    g = graph.to(DEVICE)
+    n, e, e_pad = g.num_nodes, g.n_edge, g.num_edges_padded
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    records, failures = [], []
+    directions = (
+        ("fwd", g.senders, g.row_offsets, None, g.row_split),
+        ("bwd", g.t_senders, g.t_row_offsets, g.csc_perm.long(), g.t_row_split))
+
+    def library(what, fn):
+        ms = _library_ms(what, fn)
+        return "refused" if ms is None else ms
+
+    def record(kernel, name, err, ok, same, fn, plain, lib, n_bytes, n_ops, shape):
+        ms, plain_ms = _time_ms(fn, budget_ms=500.0), _time_ms(plain, budget_ms=500.0)
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        records.append({
+            "name": f"{kernel} bf16 {name}", "route": "cuda",
+            "source": "efficient_gnns_tpu_torch/ops/cuda/csrc/segment_heads.cu",
+            "replaces": "efficient_gnns_tpu/ops/pallas/segment_matmul.py:"
+                        + ("92" if kernel == "K2" else "250"),
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if lib == "refused" else lib,
+            "launch_key": f"{kernel} bf16", "dtype": "bfloat16", "shape": shape,
+        })
+        if lib == "refused":
+            records[-1]["library"] = "refused"
+        print(f"  {kernel} bf16 {name}: max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'} "
+              f"two launches and without split {'equal' if same else 'DIFFER'} "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
+              f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+        if not (ok and same):
+            failures.append(f"{kernel} bf16 {name}")
+
+    for h, d in HEADS:
+        hd = h * d
+        x = torch.randn(n, hd, generator=gen, device=DEVICE).bfloat16()
+        gg = torch.randn(n, hd, generator=gen, device=DEVICE).bfloat16()
+        w = torch.rand(e_pad, h, generator=gen, device=DEVICE)
+        xs = [x.view(n, h, d)[:, j].contiguous() for j in range(h)]
+        for direction, src, ro, perm, sp in directions:
+            wd = w if perm is None else w[perm].contiguous()
+            shape = {"N": n, "E": e, "H": h, "D": d}
+            tag = f"{direction} H={h} D={d}"
+            got = K.csr_segment_sum_heads(x, wd, src, ro, sp)
+            want = K.csr_segment_sum_heads_plain(x, wd, src, ro)
+            scale = K.csr_segment_sum_heads_plain(x.abs(), wd.abs(), src, ro)
+            diff = (got - want).abs()
+            same = (torch.equal(got, K.csr_segment_sum_heads(x, wd, src, ro, sp))
+                    and torch.equal(got, K.csr_segment_sum_heads(x, wd, src, ro)))
+            mats = [torch.sparse_csr_tensor(ro, src[:e], wd[:e, j].bfloat16(), (n, n))
+                    for j in range(h)]
+            lib = library(f"K2 bf16 ({h} CSR matmuls)",
+                          lambda: [a @ xj for a, xj in zip(mats, xs)])
+            record("K2", f"csr_segment_sum_heads {tag}", float(diff.max()),
+                   bool((diff <= TOL + TOL * scale).all()), same,
+                   lambda: K.csr_segment_sum_heads(x, wd, src, ro, sp),
+                   lambda: K.csr_segment_sum_heads_plain(x, wd, src, ro), lib,
+                   n * hd * 2 + n * hd * 4 + e * 4 + e * h * 4 + (n + 1) * 4, 2 * e * hd,
+                   shape)
+            del got, want, scale, diff, mats
+            got = K.csr_sddmm_heads(gg, x, src, ro, h, sp)
+            want = K.csr_sddmm_heads_plain(gg, x, src, ro, h)
+            scale = K.csr_sddmm_heads_plain(gg.abs(), x.abs(), src, ro, h)
+            diff = (got - want).abs()
+            same = (torch.equal(got, K.csr_sddmm_heads(gg, x, src, ro, h, sp))
+                    and torch.equal(got, K.csr_sddmm_heads(gg, x, src, ro, h))
+                    and not bool(got[e:].any()))
+            pattern = torch.sparse_csr_tensor(
+                ro, src[:e], torch.zeros(e, dtype=torch.bfloat16, device=DEVICE), (n, n))
+            gs = [gg.view(n, h, d)[:, j].contiguous() for j in range(h)]
+            xts = [xj.t().contiguous() for xj in xs]
+            lib = library(f"K4 bf16 ({h} sampled_addmm calls)", lambda: [
+                torch.sparse.sampled_addmm(pattern, gj, xtj, beta=0.0)
+                for gj, xtj in zip(gs, xts)])
+            record("K4", f"csr_sddmm_heads {tag}", float(diff.max()),
+                   bool((diff <= TOL + TOL * scale).all()), same,
+                   lambda: K.csr_sddmm_heads(gg, x, src, ro, h, sp),
+                   lambda: K.csr_sddmm_heads_plain(gg, x, src, ro, h), lib,
+                   2 * n * hd * 2 + e * 4 + (n + 1) * 4 + e_pad * h * 4, 2 * e * hd, shape)
+            del got, want, scale, diff, pattern, gs, xts
+    torch.cuda.synchronize()
+    return records, failures
+
+
+# first-step losses of the gat-step in bfloat16 against float32, relative:
+# bfloat16 rounds the messages by at most 2**-8, which three layers of
+# attention and BatchNorm carry into the logits at about that size
+MICROBENCH_LOSS_RTOL = 1e-2
+GAT_STEP_ITERS, GAT_STEP_REPEATS = 3, 2
+# K2 and K4 launches of one gat-step (3 layers, one label iteration, no
+# attn-dst): a train step runs 2 forwards and 1 backward of each layer (K2
+# once a forward, K2 and K4 once a backward), an eval step 2 forwards
+GAT_STEP_LAUNCHES = {"train": {"K2": 9, "K4": 3}, "eval": {"K2": 6, "K4": 0}}
+
+
+def phase_microbench(graph):
+    """``analysis/microbench.py`` on the card. ``gat-step --hub 0``: the
+    arxiv-shaped teacher graph without the hub partition, so every layer of
+    the 3 x 3 x 250 teacher runs ``gat_attention`` (K2, K4-K7); the train
+    and the eval step in float32 and then in bfloat16 messages (K2 and K4
+    read bfloat16), the bfloat16 run with every counter set to 0 before it
+    and read after it; the two dtypes' first-step losses within
+    ``MICROBENCH_LOSS_RTOL``; a trace of the bfloat16 train step whose
+    summary must name K2's and K4's bfloat16 kernels. Then ``microbench
+    spmm`` at F = 128 on ``graph`` with its bound, and ``sddmm_dot`` forward
+    (K3) and backward (K1 twice) against the plain versions. Returns
+    (launches by record key, failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.analysis import microbench
+    from efficient_gnns_tpu_torch.ops import dispatch, sddmm_dot
+    from efficient_gnns_tpu_torch.ops import cuda as K
+
+    failures, launches, first = [], {}, {}
+    t0 = time.time()
+    ds = microbench.gat_dataset(169343, 1166243, hub=0)
+    print(f"microbench: gat-step graph (hub 0) built in {time.time() - t0:.1f} s, "
+          f"{ds.graph.n_edge} edges, hub {'on' if ds.graph.hub is not None else 'off'}",
+          flush=True)
+    if ds.graph.hub is not None:
+        failures.append("microbench: --hub 0 built a hub partition")
+    counters = _counters()
+    saved = dispatch.message_dtype(), dispatch.hub_message_dtype()
+    trace_dir = os.path.join(OUT_DIR, "microbench_trace")
+    try:
+        for dtype in ("float32", "bfloat16"):
+            microbench.set_message_dtype(dtype)
+            for c in counters.values():
+                c.launches = 0
+            steps = {}
+            for which in ("train", "eval"):
+                trainer = microbench.teacher_trainer(ds, DEVICE)
+                traced = which == "train" and dtype == "bfloat16"
+                r = microbench.gat_step(trainer, which, GAT_STEP_ITERS, GAT_STEP_REPEATS,
+                                        trace_dir=trace_dir if traced else None)
+                steps[which] = 1 + GAT_STEP_ITERS * GAT_STEP_REPEATS + (3 if traced else 0)
+                first[(dtype, which)] = r["first_loss"]
+                print(f"microbench gat-step {which} {dtype}: first loss "
+                      f"{r['first_loss']:.6f} step ms {r['step_ms']} peak device memory "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+                if traced:
+                    names = [k for k in r["trace"] if "bfloat16" in k]
+                    for kernel, fn in (("K2", "split_segment_sum_kernel"),
+                                       ("K4", "split_sddmm_kernel")):
+                        hit = [k for k in names if fn in k]
+                        print(f"  trace: {kernel} bf16 {sum(r['trace'][k] for k in hit):.3f} ms "
+                              f"of {r['trace']['__total__']:.3f} ms device time in "
+                              f"{len(hit)} kernel names", flush=True)
+                        if not hit:
+                            failures.append(f"microbench: the trace names no {kernel} "
+                                            "bfloat16 kernel")
+                del trainer
+            counts = {k: c.launches for k, c in counters.items()}
+            want = {k: sum(GAT_STEP_LAUNCHES[w][k] * steps[w] for w in steps)
+                    for k in ("K2", "K4")}
+            print(f"microbench gat-step {dtype}: launches {counts} (K2/K4 expected {want})",
+                  flush=True)
+            if any(counts[k] != want[k] for k in want) or counts["K1"] or counts["K3"]:
+                failures.append(f"microbench gat-step {dtype}: launches {counts}, "
+                                f"expected {want} and no K1/K3")
+            if dtype == "bfloat16":
+                launches = {"K2 bf16": counts["K2"], "K4 bf16": counts["K4"]}
+    finally:
+        dispatch.set_message_dtype(saved[0])
+        dispatch.set_hub_message_dtype(saved[1])
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    for which in ("train", "eval"):
+        f32, bf16 = first[("float32", which)], first[("bfloat16", which)]
+        rel = abs(bf16 - f32) / abs(f32)
+        print(f"microbench gat-step {which}: first loss float32 {f32:.6f} bfloat16 "
+              f"{bf16:.6f} relative gap {rel:.3e} (tolerance {MICROBENCH_LOSS_RTOL})",
+              flush=True)
+        if not rel <= MICROBENCH_LOSS_RTOL:
+            failures.append(f"microbench gat-step {which}: bf16 loss {bf16} against {f32}")
+    del ds
+
+    g = graph.to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    x = torch.randn(g.num_nodes, 128, generator=gen, device=DEVICE)
+    r = microbench.spmm_bench(g, x)
+    print(f"microbench spmm F=128: {r['ms']:.4f} ms a forward+backward on "
+          f"{torch.cuda.get_device_name(0)}, bound {r['bound_ms']:.4f} ms at "
+          f"{microbench.HBM_BYTES_PER_S / 1e12:.2f} TB/s ({r['bound_ms'] / r['ms']:.3f} of "
+          f"it)", flush=True)
+    if not r["ms"] > 0:
+        failures.append("microbench spmm: no time")
+
+    a = torch.randn(g.num_nodes, 64, generator=gen, device=DEVICE)
+    b = torch.randn(g.num_nodes, 64, generator=gen, device=DEVICE)
+    cot = torch.randn(g.num_edges_padded, generator=gen, device=DEVICE)
+    ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    K.csr_segment_sum.launches = K.csr_sddmm.launches = 0
+    out = sddmm_dot(g, ta, tb)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    sd_launches = (K.csr_sddmm.launches, K.csr_segment_sum.launches)
+    perm = g.csc_perm.long()
+    want = (K.csr_sddmm_plain(a, b, g.senders, g.row_offsets),
+            K.csr_segment_sum_plain(b, g.senders, g.row_offsets, cot),
+            K.csr_segment_sum_plain(a, g.t_senders, g.t_row_offsets, cot[perm].contiguous()))
+    scale = (K.csr_sddmm_plain(a.abs(), b.abs(), g.senders, g.row_offsets),
+             K.csr_segment_sum_plain(b.abs(), g.senders, g.row_offsets, cot.abs()),
+             K.csr_segment_sum_plain(a.abs(), g.t_senders, g.t_row_offsets,
+                                     cot[perm].abs().contiguous()))
+    errs = {}
+    for name, got, w_, sc in zip(("out", "da", "db"), (out.detach(), ta.grad, tb.grad),
+                                 want, scale):
+        diff = (got - w_).abs()
+        errs[name] = float(diff.max())
+        if not bool((diff <= TOL + TOL * sc).all()):
+            failures.append(f"sddmm_dot {name} disagrees with the plain version")
+    print(f"sddmm_dot F=64: launches K3 {sd_launches[0]} K1 {sd_launches[1]} "
+          f"(expected 1 and 2), max_abs_err vs plain {errs}", flush=True)
+    if sd_launches != (1, 2) or bool(out[g.n_edge:].any()):
+        failures.append(f"sddmm_dot: launches {sd_launches} or a value on padding edges")
+    return launches, failures
+
 
 PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
           "thin_group_sweep", "reference", "teacher_reference", "hub_attention",
@@ -2872,7 +3116,7 @@ PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
           "ogbn_cache", "runtime_spmm", "teacher_profile", "student_profile", "sign_profile",
           "ppi_kernels", "ppi_reference", "ppi_slice", "ppi_profile", "mag_kernels",
           "mag_reference", "mag_slice", "mag_profile", "mol_reference", "mol_kernels",
-          "mol_slice", "mol_cache", "mol_profile")
+          "mol_slice", "mol_cache", "mol_profile", "heads_bf16_kernels", "microbench")
 
 
 def main(argv=None) -> int:
@@ -2917,7 +3161,7 @@ def main(argv=None) -> int:
     print(f"arxiv-shaped dataset built in {time.time() - t0:.1f} s", flush=True)
     records = []
     for name, phase in (("k1", phase_k1), ("attention_kernels", phase_attention_kernels),
-                        ("k3", phase_k3)):
+                        ("k3", phase_k3), ("heads_bf16_kernels", phase_heads_bf16_kernels)):
         recs, fails = run(name, phase, ds.graph) or ([], [])
         records, failures = records + recs, failures + fails
     failures += run("split_edges", phase_split_edges) or []
@@ -2939,8 +3183,9 @@ def main(argv=None) -> int:
     ck_launches, ck_failures = run("checkpoint", phase_checkpoint, ds) or (0, [])
     ogbn_launches, ogbn_failures = run("ogbn_cache", phase_ogbn_cache, ds) or (0, [])
     rt_launches, rt_failures = run("runtime_spmm", phase_runtime_spmm, ds.graph) or ({}, [])
+    mb_launches, mb_failures = run("microbench", phase_microbench, ds.graph) or ({}, [])
     failures += (slice_failures + teacher_failures + sign_failures + ck_failures
-                 + ogbn_failures + rt_failures)
+                 + ogbn_failures + rt_failures + mb_failures)
     failures += run("ppi_reference", phase_ppi_reference) or []
     ppi_launches = {}
     if chosen & {"ppi_kernels", "ppi_slice", "ppi_profile"}:
@@ -2998,9 +3243,11 @@ def main(argv=None) -> int:
     launches["K3"] = launches.get("K3", 0) + rt_launches.get("K3", 0)
     for k, n in ppi_launches.items():
         launches[k] = launches.get(k, 0) + n
+    launches.update(mb_launches)
     for r in records:  # a shape that the paths never launch counts 0
         on_path = r.get("on_main_path", True)
-        r["launches"] = launches.get(r["name"].split()[0], 0) if on_path else 0
+        key = r.pop("launch_key", r["name"].split()[0])
+        r["launches"] = launches.get(key, 0) if on_path else 0
     if not only and any(r["launches"] == 0 for r in records if r.get("on_main_path", True)):
         print("chip_smoke FAILED: a kernel of the main paths was never launched",
               file=sys.stderr)

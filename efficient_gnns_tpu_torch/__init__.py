@@ -2,13 +2,14 @@
 
 The JAX package stays the reference; this package mirrors its module layout
 (``graphs``, ``data``, ``ops``, ``models``, ``distill``, ``sampling``,
-``train``, ``cli``) so each module's counterpart is found by name. It imports
+``train``, ``analysis``, ``cli``) so each module's counterpart is found by
+name. It imports
 ``torch`` and ``numpy`` only. The sparse aggregation runs on CUDA kernels
 written for Hopper (``ops/cuda``); on CPU tensors the same functions run as
 plain PyTorch.
 
-Ported so far: the ogbn-arxiv workload (the GCN, SAGE and SIGN students in
-every distillation mode, the GAT teacher, checkpoints, the OGB loader and
-the ``arxiv``, ``gat_teacher`` and ``sign`` CLIs). See ROADMAP.md for what
-remains.
+Ported so far: every workload (ogbn-arxiv with the GCN, SAGE and SIGN
+students and the GAT teacher, PPI, ogbn-mag, ogbg-molhiv), every CLI and
+every single-device module, the tooling of ``analysis`` included. See
+ROADMAP.md for what remains (the multi-device modules).
 """

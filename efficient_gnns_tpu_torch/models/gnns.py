@@ -1,5 +1,5 @@
 """The GNN model zoo (counterpart of ``efficient_gnns_tpu/models/gnns.py``;
-the GCN and SAGE students, their projection heads, the GAT teacher, the
+the GCN and SAGE students, the DGL-style GCN baseline, their projection heads, the GAT teacher, the
 graph-agnostic SIGN student, the PPI GATs and the MAG R-GCN).
 
 Every model's ``forward`` returns ``(logits, out_feat)``, ``out_feat`` being
@@ -73,6 +73,52 @@ class SAGE(GCN):
     :class:`SAGEConv` (neighbor mean + root weight) in place of ``GCNConv``."""
 
     conv_cls = SAGEConv
+
+
+class DGLGCN(nn.Module):
+    """DGL-style GCN baseline (reference ``arxiv_dgl/models.py:46-92``):
+    symmetric-norm ``GCNConv`` with a bias on the last layer only, an
+    optional bias-free parallel linear per layer (``use_linear``), input
+    dropout ``min(0.1, dropout)``, then ``BN -> ReLU -> dropout`` between
+    layers; ``out_feat`` = the activations entering the last layer.
+
+    Weights are initialized from ``torch.Generator().manual_seed(seed)`` on
+    the CPU, then moved to ``device``.
+    """
+
+    def __init__(self, in_feats: int, hidden: int, out_feats: int, num_layers: int,
+                 dropout: float = 0.5, use_linear: bool = False, *, seed: int = 0,
+                 device="cuda"):
+        super().__init__()
+        gen = torch.Generator().manual_seed(seed)
+        dims = [in_feats] + [hidden] * (num_layers - 1) + [out_feats]
+        self.convs, linears = nn.ModuleList(), []
+        for i in range(num_layers):
+            self.convs.append(GCNConv(dims[i], dims[i + 1], use_bias=i == num_layers - 1,
+                                      generator=gen, device=device))
+            if use_linear:
+                linears.append(xavier_uniform(dims[i], dims[i + 1], gen, device))
+        self.linear_weights = nn.ParameterList(linears) if use_linear else None
+        self.bns = nn.ModuleList(
+            MaskedBatchNorm(hidden, device=device) for _ in range(num_layers - 1)
+        )
+        self.dropout = dropout
+
+    def forward(self, graph: Graph, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        h = dropout(x, min(0.1, self.dropout), generator) if self.training else x
+        out_feat = None
+        for i, conv in enumerate(self.convs):
+            out = conv(graph, h)
+            if self.linear_weights is not None:
+                out = out + h @ self.linear_weights[i]
+            h = out
+            if i < len(self.bns):
+                h = torch.relu(self.bns[i](h, graph.node_mask))
+                if self.training:
+                    h = dropout(h, self.dropout, generator)
+                out_feat = h
+        return h, out_feat
 
 
 class ProjectionLinear(nn.Module):

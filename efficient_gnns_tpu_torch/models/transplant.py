@@ -29,6 +29,8 @@ _PARAM_RULES = (
     (re.compile(r"conv_(\d+)/bias"), "convs.{}.bias"),
     (re.compile(r"conv_(\d+)/Dense_0/bias"), "convs.{}.bias"),
     (re.compile(r"conv_(\d+)/Dense_1/kernel"), "convs.{}.root_weight"),
+    # DGLGCN's bias-free parallel linears (its convs and BNs take the GCN rules)
+    (re.compile(r"linear_(\d+)/kernel"), "linear_weights.{}"),
     # ProjectionLinear / ProjectionMLP
     (re.compile(r"Dense_0/kernel"), "weight"),
     (re.compile(r"Dense_0/bias"), "bias"),
@@ -100,7 +102,7 @@ def _rename(flat: Dict[str, np.ndarray], rules) -> Dict[str, torch.Tensor]:
 
 
 def from_jax_params(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """``state_dict`` for the port's ``GCN``, ``SAGE``, ``GATTeacher``, ``SIGN``,
+    """``state_dict`` for the port's ``GCN``, ``SAGE``, ``DGLGCN``, ``GATTeacher``, ``SIGN``,
     ``PPIGAT``, ``RGCN`` or a projection head (``ProjectionLinear``, ``ProjectionMLP``,
     ``ProjectionGCD``) from the JAX module's ``params`` and ``batch_stats``."""
     state = _rename(_flatten(params), _PARAM_RULES)

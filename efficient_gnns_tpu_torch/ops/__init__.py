@@ -1,5 +1,5 @@
 from efficient_gnns_tpu_torch.ops.edge_softmax import edge_softmax
-from efficient_gnns_tpu_torch.ops.sddmm import sddmm_add
+from efficient_gnns_tpu_torch.ops.sddmm import sddmm_add, sddmm_dot
 from efficient_gnns_tpu_torch.ops.segment import (
     gather,
     segment_max,
@@ -17,6 +17,7 @@ __all__ = [
     "gather",
     "gather_rows_csr",
     "sddmm_add",
+    "sddmm_dot",
     "segment_max",
     "segment_mean",
     "segment_min",

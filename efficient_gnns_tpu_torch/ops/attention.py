@@ -14,6 +14,11 @@ K6 with the graph's row split of the edge order they walk):
   the transpose order (``csc_perm``) for K5 (sender-side logit gradient) and
   K2 (feature gradient over the transpose CSR).
 
+K2 and K4 read the features and the cotangent in
+``dispatch.message_dtype()`` (bfloat16 halves their gathered bytes), as the
+JAX ``_pad_heads`` casts them; the logits, probabilities and every sum stay
+float32, and the output and ``dfeat`` take ``feat_src``'s dtype.
+
 Masked edges (edge-drop ``keep_mask`` and padding) are set to float32 lowest
 before the maximum and removed with ``torch.where`` after the exponential,
 which may be ``inf`` there: a multiply by the mask would give ``inf * 0 =
@@ -29,6 +34,7 @@ from typing import Optional
 import torch
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
+from efficient_gnns_tpu_torch.ops import dispatch
 from efficient_gnns_tpu_torch.ops.cuda import (
     csr_sddmm_heads,
     csr_segment_max_thin,
@@ -37,7 +43,6 @@ from efficient_gnns_tpu_torch.ops.cuda import (
     csr_tile_rows_thin,
 )
 from efficient_gnns_tpu_torch.ops.segment import gather
-from efficient_gnns_tpu_torch.ops.spmm import require_float32_messages
 
 _F32_LOWEST = float(torch.finfo(torch.float32).min)
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
@@ -57,9 +62,9 @@ def _softmax(e, graph: Graph, slot_mask):
 class _GATAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feat, el, er, keep_mask, attn_keep, graph: Graph,
-                negative_slope: float, attn_keep_prob: float):
+                negative_slope: float, attn_keep_prob: float, msg_dtype):
         n, h, d = feat.shape
-        xf = feat.reshape(n, h * d).float().contiguous()
+        xm = feat.reshape(n, h * d).to(msg_dtype).contiguous()
         e = gather(el.float(), graph.senders)
         if er is not None:
             e = e + csr_tile_rows_thin(er.float().contiguous(), graph.receivers,
@@ -73,22 +78,22 @@ class _GATAttention(torch.autograd.Function):
         a_drop = a
         if attn_keep is not None:
             a_drop = torch.where(attn_keep, a / attn_keep_prob, 0.0)
-        out = csr_segment_sum_heads(xf, a_drop, graph.senders, graph.row_offsets,
+        out = csr_segment_sum_heads(xm, a_drop, graph.senders, graph.row_offsets,
                                     graph.row_split)
-        ctx.save_for_backward(xf, a, a_drop, lrelu_g, attn_keep)
-        ctx.graph, ctx.has_er = graph, er is not None
+        ctx.save_for_backward(xm, a, a_drop, lrelu_g, attn_keep)
+        ctx.graph, ctx.has_er, ctx.msg_dtype = graph, er is not None, msg_dtype
         ctx.attn_keep_prob, ctx.dtypes = attn_keep_prob, (feat.dtype, el.dtype)
         return out.view(n, h, d).to(feat.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        xf, a, a_drop, lrelu_g, attn_keep = ctx.saved_tensors
+        xm, a, a_drop, lrelu_g, attn_keep = ctx.saved_tensors
         graph = ctx.graph
         ro, recv = graph.row_offsets, graph.receivers
-        n, h = xf.shape[0], a.shape[1]
-        gf = g.reshape(n, -1).float().contiguous()
+        n, h = xm.shape[0], a.shape[1]
+        gm = g.reshape(n, -1).to(ctx.msg_dtype).contiguous()
 
-        da = csr_sddmm_heads(gf, xf, graph.senders, ro, h, graph.row_split)
+        da = csr_sddmm_heads(gm, xm, graph.senders, ro, h, graph.row_split)
         if attn_keep is not None:
             da = torch.where(attn_keep, da / ctx.attn_keep_prob, 0.0)
         # softmax VJP per receiver: de = a * (da - sum_row(a * da))
@@ -100,10 +105,10 @@ class _GATAttention(torch.autograd.Function):
         perm = graph.csc_perm.long()
         del_ = csr_segment_sum_thin(de[perm], graph.t_row_offsets,
                                     graph.t_row_split).to(ctx.dtypes[1])
-        dx = csr_segment_sum_heads(gf, a_drop[perm], graph.t_senders,
+        dx = csr_segment_sum_heads(gm, a_drop[perm], graph.t_senders,
                                    graph.t_row_offsets, graph.t_row_split)
         return (dx.view(n, h, -1).to(ctx.dtypes[0]), del_, der,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def gat_attention(
@@ -120,19 +125,20 @@ def gat_attention(
     """``out[r, h] = sum_e softmax_r(leaky_relu(el[s_e,h] + er[r,h])) * feat_src[s_e, h]``.
 
     Args:
-      feat_src: float32[N, H, D] source-side (message) features.
+      feat_src: float[N, H, D] source-side (message) features, read by K2
+        (and K4 in the backward) in ``dispatch.message_dtype()``.
       el: float32[N, H] sender attention logits; er: receiver logits or None.
       keep_mask: bool[E_pad] edge-drop keep mask in CSR order (dropped edges
         leave the normalisation).
       attn_keep: bool[E_pad, H] attention-dropout keep mask in CSR order.
     """
-    require_float32_messages("gat_attention")
     n, h = graph.num_nodes, el.shape[-1]
     if feat_src.dim() != 3 or feat_src.shape[:2] != (n, h) or h > 8:
         raise ValueError(f"gat_attention: feat_src must be [N={n}, H <= 8, D] and "
                          f"el [N, H], got {tuple(feat_src.shape)} and {tuple(el.shape)}")
     return _GATAttention.apply(feat_src, el, er, keep_mask, attn_keep, graph,
-                               float(negative_slope), float(attn_keep_prob))
+                               float(negative_slope), float(attn_keep_prob),
+                               dispatch.message_dtype())
 
 
 def sample_edge_masks(graph: Graph, generator: Optional[torch.Generator],

@@ -1,8 +1,10 @@
 // Loads of V contiguous elements of a feature row into float registers,
 // shared by the kernels that gather rows (K1 and K2 through
 // segment_split.cuh, K3 and K4 through split_sddmm.cuh). V > 1 is one load
-// of V elements (16 bytes; 8 for two floats) and needs an address aligned to
-// its size (the wrappers pick a smaller V otherwise).
+// of V elements (16 bytes; 8 for two floats, 4 for two bfloat16) and needs
+// an address aligned to its size (the wrappers pick a smaller V otherwise).
+// The two-element bfloat16 load serves heads whose D is even but no multiple
+// of 8 (the GAT teacher's D = 250: a head starts at a 500-byte offset).
 
 #pragma once
 
@@ -46,6 +48,15 @@ template <>
 struct Loader<__nv_bfloat16, 1> {
   __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* v) {
     v[0] = __bfloat162float(p[0]);
+  }
+};
+
+template <>
+struct Loader<__nv_bfloat16, 2> {
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* v) {
+    const float2 f = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+    v[0] = f.x;
+    v[1] = f.y;
   }
 };
 

@@ -36,7 +36,7 @@ extern "C" {
 // order; row_offsets: int32 [num_rows + 1]; chunks [num_chunks, 3] is the
 // row split of row_offsets at `threshold` and num_edges =
 // row_offsets[num_rows]; out: float32 [E_pad]. vec: elements per lane load
-// (float32: 4, 2 or 1; bfloat16: 8 or 1), the largest that divides f with g
+// (float32: 4, 2 or 1; bfloat16: 8, 2 or 1), the largest that divides f with g
 // and x aligned to it. Returns cudaGetLastError().
 int egt_csr_sddmm(const void* g, const void* x, int dtype, int vec, const void* src,
                   const void* row_offsets, const void* chunks, void* out,
@@ -53,6 +53,7 @@ int egt_csr_sddmm(const void* g, const void* x, int dtype, int vec, const void* 
   if (dtype == 0 && vec == 2) return launch_split_sddmm<float, 2>(a);
   if (dtype == 0 && vec == 1) return launch_split_sddmm<float, 1>(a);
   if (dtype == 1 && vec == 8) return launch_split_sddmm<__nv_bfloat16, 8>(a);
+  if (dtype == 1 && vec == 2) return launch_split_sddmm<__nv_bfloat16, 2>(a);
   if (dtype == 1 && vec == 1) return launch_split_sddmm<__nv_bfloat16, 1>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,7 +26,7 @@
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. vec: elements per lane load (float32:
-// 4, 2 or 1; bfloat16: 8 or 1); the caller picks the largest that divides f
+// 4, 2 or 1; bfloat16: 8, 2 or 1); the caller picks the largest that divides f
 // with x aligned to vec elements. w may be null (unweighted). chunks
 // [num_chunks, 3], long_rows [num_long] and long_first [num_long + 1] are
 // the row split of row_offsets at `threshold`; partial is float32 scratch
@@ -52,6 +52,7 @@ int egt_csr_segment_sum(const void* x, int dtype, int vec, const void* src,
   if (dtype == 0 && vec == 2) return launch_split<float, 2>(a);
   if (dtype == 0 && vec == 1) return launch_split<float, 1>(a);
   if (dtype == 1 && vec == 8) return launch_split<__nv_bfloat16, 8>(a);
+  if (dtype == 1 && vec == 2) return launch_split<__nv_bfloat16, 2>(a);
   if (dtype == 1 && vec == 1) return launch_split<__nv_bfloat16, 1>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,6 @@
 // Per-edge row dots over a receiver-sorted CSR, walked row by row on the
 // schedule of segment_split.cuh: the template that K3 (segment_sddmm.cu, one
-// head, float32 or bfloat16) and K4 (segment_heads.cu, H heads, float32)
-// share.
+// head) and K4 (segment_heads.cu, H heads) share, in float32 or bfloat16.
 //
 //   dw[e, h] = sum_c g[r_e, h*D + c] * x[src[e], h*D + c]   for e < num_edges
 //   dw[e, h] = 0                                          for the padding edges

@@ -15,9 +15,11 @@ chunks into partial rows that a second kernel adds in a fixed order
 rows and chunks (``csrc/split_sddmm.cuh``): a (row or chunk, head) task
 holds ``g[r, h]`` in registers and streams the ``x`` rows of its edges, so
 ``g`` is read once per row; each edge's dot has one owner and a fixed
-order (deterministic, the same bits with any split). Features are float32
-``[rows, H*D]`` with the heads side by side (no padding of D), head weights
-float32 ``[E_pad, H]``, indices int32.
+order (deterministic, the same bits with any split). Features (``x``, and
+``g`` for K4) are float32 or bfloat16 ``[rows, H*D]`` with the heads side by
+side (no padding of D); head weights are float32 ``[E_pad, H]``, indices
+int32; products, sums and outputs are float32. With bfloat16 features the
+Pallas kernels also round each ``w * x`` product to bfloat16; these do not.
 
 The wrappers run the plain version for tensors on the CPU and the kernel for
 tensors on a CUDA device; they never move work between them.
@@ -32,7 +34,12 @@ import torch
 
 from efficient_gnns_tpu_torch.graphs.row_split import RowSplit
 from efficient_gnns_tpu_torch.ops.cuda import build
-from efficient_gnns_tpu_torch.ops.cuda.segment_sum import check_split, derive_split, float_vec
+from efficient_gnns_tpu_torch.ops.cuda.segment_sum import (
+    DTYPE_CODE,
+    check_split,
+    derive_split,
+    float_vec,
+)
 from efficient_gnns_tpu_torch.ops.segment import csr_row_ids, gather
 
 _CHUNK_ELEMENTS = 1 << 27  # plain versions gather at most this many floats at once
@@ -42,23 +49,30 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("segment_heads")
     if lib.egt_csr_segment_sum_heads.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.egt_csr_segment_sum_heads.argtypes = [p, p, i, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.egt_csr_segment_sum_heads.argtypes = [p, p, i, i, p, p, p, p, p, p, p, i, i, i, i, i,
+                                                  i, p]
         lib.egt_csr_segment_sum_heads.restype = i
-        lib.egt_csr_sddmm_heads.argtypes = [p, p, i, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.egt_csr_sddmm_heads.argtypes = [p, p, i, i, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.egt_csr_sddmm_heads.restype = i
         lib.egt_cuda_error_string.argtypes = [i]
         lib.egt_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name, floats, ints, num_heads) -> None:
+def _check(name, msgs, floats, ints, num_heads) -> None:
+    for key, t in msgs.items():
+        if t.dim() != 2 or t.dtype not in DTYPE_CODE:
+            raise ValueError(f"{name}: {key} must be 2-D float32/bfloat16, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if len({t.dtype for t in msgs.values()}) > 1:
+        raise ValueError(f"{name}: {' and '.join(msgs)} must share one dtype")
     for key, t in floats.items():
         if t.dim() != 2 or t.dtype != torch.float32:
             raise ValueError(f"{name}: {key} must be 2-D float32, got {t.dtype} {tuple(t.shape)}")
     for key, t in ints.items():
         if t.dim() != 1 or t.dtype != torch.int32:
             raise ValueError(f"{name}: {key} must be 1-D int32, got {t.dtype} {tuple(t.shape)}")
-    tensors = list(floats.values()) + list(ints.values())
+    tensors = [*msgs.values(), *floats.values(), *ints.values()]
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError(f"{name}: all tensors must be on one device")
     if any(not t.is_contiguous() for t in tensors):
@@ -72,7 +86,8 @@ def _check(name, floats, ints, num_heads) -> None:
 
 def csr_segment_sum_heads_plain(x, w, src, row_offsets) -> torch.Tensor:
     """The plain PyTorch version of K2: gather, scale per head, ``index_add_``
-    in float32, over chunks of edges. Runs on any device."""
+    in float32 (from bfloat16 features too), over chunks of edges. Runs on
+    any device."""
     num_rows, h = row_offsets.numel() - 1, w.shape[1]
     d = x.shape[1] // h
     e = int(row_offsets[-1])
@@ -90,8 +105,9 @@ def csr_segment_sum_heads(x, w, src, row_offsets,
                           split: Optional[RowSplit] = None) -> torch.Tensor:
     """float32[num_rows, H*D] multi-head CSR segment sums (K2).
 
-    ``x`` is ``[*, H*D]`` (head ``h`` in columns ``h*D:(h+1)*D``), ``w`` the
-    per-edge head weights ``[E_pad, H]`` in the order of ``src``. Edges past
+    ``x`` is float32 or bfloat16 ``[*, H*D]`` (head ``h`` in columns
+    ``h*D:(h+1)*D``), ``w`` the float32 per-edge head weights ``[E_pad, H]``
+    in the order of ``src``. Edges past
     ``row_offsets[-1]`` (padding) are never read. ``split`` is the row split
     of ``row_offsets`` (``Graph.row_split`` / ``Graph.t_row_split``); without
     it the split is derived here, which costs a host copy per call. On a
@@ -99,7 +115,7 @@ def csr_segment_sum_heads(x, w, src, row_offsets,
     ``csr_segment_sum_heads.launches``) or raises.
     """
     name = "csr_segment_sum_heads"
-    _check(name, {"x": x, "w": w}, {"src": src, "row_offsets": row_offsets}, w.shape[1])
+    _check(name, {"x": x}, {"w": w}, {"src": src, "row_offsets": row_offsets}, w.shape[1])
     h = w.shape[1]
     if x.shape[1] % h or w.shape[0] != src.shape[0]:
         raise ValueError(f"{name}: x [*, H*D], w [E_pad, H] and "
@@ -117,7 +133,7 @@ def csr_segment_sum_heads(x, w, src, row_offsets,
     out = torch.empty((num_rows, h * d), dtype=torch.float32, device=x.device)
     partial = torch.empty((split.num_chunks, h * d), dtype=torch.float32, device=x.device)
     rc = lib.egt_csr_segment_sum_heads(
-        x.data_ptr(), w.data_ptr(), float_vec(torch.float32, d, x.data_ptr()),
+        x.data_ptr(), w.data_ptr(), DTYPE_CODE[x.dtype], float_vec(x.dtype, d, x.data_ptr()),
         src.data_ptr(), row_offsets.data_ptr(), split.chunks.data_ptr(),
         split.long_rows.data_ptr(), split.long_first.data_ptr(), out.data_ptr(),
         partial.data_ptr(), num_rows, split.num_chunks, split.num_long, h, d,
@@ -133,7 +149,8 @@ csr_segment_sum_heads.launches = 0
 
 def csr_sddmm_heads_plain(g, x, src, row_offsets, num_heads: int) -> torch.Tensor:
     """The plain PyTorch version of K4: gather both rows, multiply, sum each
-    head's columns, over chunks of edges; 0 on padding edges."""
+    head's columns in float32 (from bfloat16 features too), over chunks of
+    edges; 0 on padding edges."""
     e_pad, e = src.shape[0], int(row_offsets[-1])
     rows = csr_row_ids(row_offsets, e)
     d = x.shape[1] // num_heads
@@ -141,7 +158,7 @@ def csr_sddmm_heads_plain(g, x, src, row_offsets, num_heads: int) -> torch.Tenso
     step = max(1, _CHUNK_ELEMENTS // max(1, x.shape[1]))
     for lo in range(0, e, step):
         hi = min(e, lo + step)
-        prod = gather(g, rows[lo:hi]) * gather(x, src[lo:hi])
+        prod = gather(g, rows[lo:hi]).float() * gather(x, src[lo:hi]).float()
         out[lo:hi] = prod.view(-1, num_heads, d).sum(-1)
     return out
 
@@ -151,7 +168,8 @@ def csr_sddmm_heads(g, x, src, row_offsets, num_heads: int,
     """float32[E_pad, H] per-edge head dots ``<g[r_e, h], x[src_e, h]>`` (K4).
 
     ``g`` is ``[num_rows, H*D]`` (rows by receiver), ``x`` ``[*, H*D]`` (rows
-    by sender), ``src`` the senders in CSR order. Edges past
+    by sender), both float32 or both bfloat16, ``src`` the senders in CSR
+    order. Edges past
     ``row_offsets[-1]`` get 0 and their indices are never read. ``split`` is
     the row split of ``row_offsets`` (``Graph.row_split``); without it the
     split is derived here, which costs a host copy per call. On a CUDA
@@ -159,7 +177,7 @@ def csr_sddmm_heads(g, x, src, row_offsets, num_heads: int,
     or raises.
     """
     name = "csr_sddmm_heads"
-    _check(name, {"g": g, "x": x}, {"src": src, "row_offsets": row_offsets}, num_heads)
+    _check(name, {"g": g, "x": x}, {}, {"src": src, "row_offsets": row_offsets}, num_heads)
     if (g.shape[1] != x.shape[1] or x.shape[1] % num_heads
             or g.shape[0] != row_offsets.numel() - 1):
         raise ValueError(f"{name}: g [num_rows, H*D], x [*, H*D] and row_offsets "
@@ -175,10 +193,10 @@ def csr_sddmm_heads(g, x, src, row_offsets, num_heads: int,
     lib = _lib()
     e_pad, d = src.shape[0], x.shape[1] // num_heads
     out = torch.empty((e_pad, num_heads), dtype=torch.float32, device=x.device)
-    vec = min(float_vec(torch.float32, d, x.data_ptr()),
-              float_vec(torch.float32, d, g.data_ptr()))
+    vec = min(float_vec(x.dtype, d, x.data_ptr()), float_vec(x.dtype, d, g.data_ptr()))
     rc = lib.egt_csr_sddmm_heads(
-        g.data_ptr(), x.data_ptr(), vec, src.data_ptr(), row_offsets.data_ptr(),
+        g.data_ptr(), x.data_ptr(), DTYPE_CODE[x.dtype], vec, src.data_ptr(),
+        row_offsets.data_ptr(),
         split.chunks.data_ptr(), out.data_ptr(), split.num_rows, split.num_chunks,
         num_heads, d, split.threshold, split.num_edges, e_pad,
         torch.cuda.current_stream(x.device).cuda_stream,

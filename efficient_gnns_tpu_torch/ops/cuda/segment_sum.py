@@ -73,11 +73,11 @@ def _check(x, src, row_offsets, w) -> None:
 
 def float_vec(dtype: torch.dtype, d: int, ptr: int) -> int:
     """Elements in one lane load of a row of ``d`` columns at address ``ptr``:
-    the widest of 16 bytes, 8 bytes (two floats) or one element that divides
-    ``d`` and to which the address is aligned."""
+    the widest of 16 bytes, two elements (8 bytes of float32, 4 of bfloat16)
+    or one element that divides ``d`` and to which the address is aligned."""
     if d % VEC[dtype] == 0 and ptr % 16 == 0:
         return VEC[dtype]
-    if dtype == torch.float32 and d % 2 == 0 and ptr % 8 == 0:
+    if d % 2 == 0 and ptr % (2 * dtype.itemsize) == 0:
         return 2
     return 1
 

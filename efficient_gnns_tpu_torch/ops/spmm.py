@@ -16,7 +16,9 @@ takes ``x``'s dtype, as in the JAX blocked path.
 ``spmm_heads`` mirrors ``_spmm_heads_blocked``: the forward is K2
 (``ops/cuda/segment_heads.py``) over the CSR, ``dx`` is K2 over the
 transpose CSR with the weights permuted by ``csc_perm``, and ``dw`` is K4.
-It reads float32 messages only.
+K2 and K4 read ``x`` and the cotangent in ``dispatch.message_dtype()``; the
+head weights stay float32, sums are float32 and ``out`` / ``dx`` take
+``x``'s dtype.
 """
 
 from __future__ import annotations
@@ -179,45 +181,37 @@ def spmm_mean(
     return total / deg.clamp_min(1.0)[:, None]
 
 
-def require_float32_messages(op: str) -> None:
-    """The multi-head kernels (K2, K4) read float32 messages only."""
-    if dispatch.message_dtype() != torch.float32:
-        raise NotImplementedError(
-            f"{op} with {dispatch.message_dtype()} messages is not ported yet: "
-            "K2/K4 read float32 (ROADMAP.md, Queue 2)"
-        )
-
-
 class _SpMMHeads(torch.autograd.Function):
-    """``out[r, h] = sum_e w[e, h] * x[s_e, h]`` with trainable ``w``."""
+    """``out[r, h] = sum_e w[e, h] * x[s_e, h]`` with trainable ``w``; K2 and
+    K4 read ``x`` and the cotangent in ``msg_dtype``."""
 
     @staticmethod
-    def forward(ctx, x, w, graph: Graph):
+    def forward(ctx, x, w, graph: Graph, msg_dtype):
         n, h, d = x.shape
-        xf = x.reshape(n, h * d).float().contiguous()
+        xm = x.reshape(n, h * d).to(msg_dtype).contiguous()
         wf = w.float().contiguous()
-        ctx.save_for_backward(xf, wf)
-        ctx.graph, ctx.x_dtype, ctx.w_dtype = graph, x.dtype, w.dtype
-        out = csr_segment_sum_heads(xf, wf, graph.senders, graph.row_offsets,
+        ctx.save_for_backward(xm, wf)
+        ctx.graph, ctx.msg_dtype, ctx.x_dtype, ctx.w_dtype = graph, msg_dtype, x.dtype, w.dtype
+        out = csr_segment_sum_heads(xm, wf, graph.senders, graph.row_offsets,
                                     graph.row_split)
         return out.view(n, h, d).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        xf, wf = ctx.saved_tensors
+        xm, wf = ctx.saved_tensors
         graph = ctx.graph
-        n, h = xf.shape[0], wf.shape[1]
-        gf = g.reshape(n, -1).float().contiguous()
+        n, h = xm.shape[0], wf.shape[1]
+        gm = g.reshape(n, -1).to(ctx.msg_dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             w_t = wf[graph.csc_perm.long()].contiguous()
-            dx = csr_segment_sum_heads(gf, w_t, graph.t_senders, graph.t_row_offsets,
+            dx = csr_segment_sum_heads(gm, w_t, graph.t_senders, graph.t_row_offsets,
                                        graph.t_row_split)
             dx = dx.view(n, h, -1).to(ctx.x_dtype)
         if ctx.needs_input_grad[1]:
-            dw = csr_sddmm_heads(gf, xf, graph.senders, graph.row_offsets, h,
+            dw = csr_sddmm_heads(gm, xm, graph.senders, graph.row_offsets, h,
                                  graph.row_split).to(ctx.w_dtype)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def spmm_heads(graph: Graph, x: torch.Tensor, edge_weight: torch.Tensor) -> torch.Tensor:
@@ -225,11 +219,11 @@ def spmm_heads(graph: Graph, x: torch.Tensor, edge_weight: torch.Tensor) -> torc
 
     Args:
       graph: the adjacency (its own ``edge_weight`` is not used).
-      x: float32[num_nodes, H, D] node features on the graph's device.
+      x: float[num_nodes, H, D] node features on the graph's device, read by
+        K2 (and K4 in the backward) in ``dispatch.message_dtype()``.
       edge_weight: float[E_pad, H] per-edge head weights in CSR order
         (trainable: its gradient is K4's per-edge head dots).
     """
-    require_float32_messages("spmm_heads")
     if (x.dim() != 3 or x.shape[0] != graph.num_nodes
             or tuple(edge_weight.shape) != (graph.num_edges_padded, x.shape[1])):
         raise ValueError(
@@ -237,4 +231,4 @@ def spmm_heads(graph: Graph, x: torch.Tensor, edge_weight: torch.Tensor) -> torc
             f"edge_weight [E_pad={graph.num_edges_padded}, H], got "
             f"{tuple(x.shape)} and {tuple(edge_weight.shape)}"
         )
-    return _SpMMHeads.apply(x, edge_weight, graph)
+    return _SpMMHeads.apply(x, edge_weight, graph, dispatch.message_dtype())

@@ -1,4 +1,4 @@
-"""Per-epoch metrics writer (counterpart of
+"""Per-epoch metrics writer and reader (counterpart of
 ``efficient_gnns_tpu/train/metrics.py``), with the same JSONL schema: one
 record per epoch, ``{"step": epoch, "loss/train": ..., "acc/valid": ...}``,
 and optional TensorBoard event files under the same scalar names.
@@ -42,3 +42,9 @@ class MetricsWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def read_jsonl(log_dir: str, filename: str = "metrics.jsonl"):
+    """All records of a metrics JSONL file, in order (blank lines skipped)."""
+    with open(os.path.join(log_dir, filename)) as f:
+        return [json.loads(line) for line in f if line.strip()]

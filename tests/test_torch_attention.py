@@ -339,10 +339,12 @@ def test_wrappers_check_inputs_and_skip_padding(rng, graphs):
         csr_segment_sum_thin(torch.randn(tg.num_edges_padded, 9), tg.row_offsets)
     with pytest.raises(ValueError, match="one row per CSR row"):
         csr_tile_rows_thin(torch.randn(N + 1, H), tg.receivers, tg.row_offsets)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dispatch.set_message_dtype(torch.bfloat16)
-        spmm_heads(tg, x.view(N, H, D), w)
-    dispatch.set_message_dtype(torch.float32)
+    # bfloat16 messages are taken (tests/test_torch_heads_bf16.py); the head
+    # weights stay float32, and g and x share one dtype
+    with pytest.raises(ValueError, match="w must be 2-D float32"):
+        csr_segment_sum_heads(x.bfloat16(), w.bfloat16(), tg.senders, tg.row_offsets)
+    with pytest.raises(ValueError, match="share one dtype"):
+        csr_sddmm_heads(x.bfloat16(), x, tg.senders, tg.row_offsets, H)
     counters = (csr_segment_sum_heads, csr_sddmm_heads, csr_segment_sum_thin,
                 csr_segment_max_thin, csr_tile_rows_thin)
     before = [c.launches for c in counters]

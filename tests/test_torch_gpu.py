@@ -19,8 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+from efficient_gnns_tpu_torch.analysis.timing import device_memory_stats
 from efficient_gnns_tpu_torch.graphs import build_graph, build_row_split
-from efficient_gnns_tpu_torch.ops import dispatch
+from efficient_gnns_tpu_torch.ops import dispatch, sddmm_dot
 from efficient_gnns_tpu_torch.ops import hub_attention as hub
 from efficient_gnns_tpu_torch.ops.cuda import (
     csr_sddmm,
@@ -164,6 +165,71 @@ def test_attention_kernels_match_plain_on_card(rng, cuda_device, heads, d):
         assert shifted.data_ptr() % 16 and shifted.shape[0] % 4
         assert torch.equal(csr_tile_rows_thin(vals, shifted, ro), want[:-2])
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("heads,d,vec", [(3, 250, 2), (1, 121, 1), (2, 68, 2), (1, 40, 8)])
+def test_heads_kernels_bf16_match_plain_on_card(rng, cuda_device, heads, d, vec):
+    # K2 and K4 reading bfloat16 messages in loads of 8, 2 and 1 elements;
+    # the plain versions form the same float32 products of the bf16 values
+    from efficient_gnns_tpu_torch.ops.cuda.segment_sum import float_vec
+
+    n = 70
+    s, r = _attention_edges(rng)
+    g = build_graph(s, r, n, edge_pad_multiple=512).to(cuda_device)
+    x = torch.randn(n, heads * d, device=cuda_device).bfloat16()
+    gg = torch.randn(n, heads * d, device=cuda_device).bfloat16()
+    w = torch.randn(g.num_edges_padded, heads, device=cuda_device)
+    assert float_vec(torch.bfloat16, d, x.data_ptr()) == vec
+    k2, k4 = csr_segment_sum_heads.launches, csr_sddmm_heads.launches
+    close = dict(rtol=1e-5, atol=1e-4)
+    for src, ro, split in ((g.senders, g.row_offsets, g.row_split),
+                           (g.t_senders, g.t_row_offsets, g.t_row_split)):
+        got = csr_segment_sum_heads(x, w, src, ro, split)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, csr_segment_sum_heads_plain(x, w, src, ro), **close)
+        torch.testing.assert_close(got, csr_segment_sum_heads_plain(x.float(), w, src, ro),
+                                   **close)
+        assert torch.equal(got, csr_segment_sum_heads(x, w, src, ro, split))
+        assert torch.equal(got, csr_segment_sum_heads(x, w, src, ro))
+        got = csr_sddmm_heads(gg, x, src, ro, heads, split)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, csr_sddmm_heads_plain(gg, x, src, ro, heads), **close)
+        assert torch.equal(got, csr_sddmm_heads(gg, x, src, ro, heads, split))
+        assert torch.equal(got, csr_sddmm_heads(gg, x, src, ro, heads))
+        assert not got[g.n_edge:].any()
+    assert csr_segment_sum_heads.launches == k2 + 6
+    assert csr_sddmm_heads.launches == k4 + 6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sddmm_dot_on_card_matches_cpu(rng, cuda_device, dtype):
+    # forward K3, backward two K1 sums; the CPU takes the plain versions
+    graph = _high_degree(rng)
+    a = torch.from_numpy(rng.normal(size=(N, 40)).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rng.normal(size=(N, 40)).astype(np.float32)).to(dtype)
+    cot = torch.from_numpy(rng.normal(size=graph.num_edges_padded).astype(np.float32))
+    k1, k3 = csr_segment_sum.launches, csr_sddmm.launches
+    outs = []
+    for dev in ("cpu", cuda_device):
+        ta = a.to(dev, copy=True).requires_grad_(True)
+        tb = b.to(dev, copy=True).requires_grad_(True)
+        out = sddmm_dot(graph.to(dev), ta, tb)
+        (out.float() * cot.to(dev)).sum().backward()
+        outs.append([t.detach().float().cpu() for t in (out, ta.grad, tb.grad)])
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 else dict(rtol=2**-7, atol=1e-4)
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, **tol)
+    assert not outs[1][0][graph.n_edge:].any()
+    assert (csr_segment_sum.launches, csr_sddmm.launches) == (k1 + 2, k3 + 1)
+
+
+def test_device_memory_stats_on_card(cuda_device):
+    x = torch.empty(1 << 20, device=cuda_device)
+    stats = device_memory_stats(cuda_device)
+    assert set(stats) == {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"] >= x.numel() * 4
+    assert stats["bytes_limit"] > stats["peak_bytes_in_use"]
 
 
 @pytest.mark.parametrize("seed", [None, 2**32 - 9])

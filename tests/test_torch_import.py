@@ -41,7 +41,9 @@ def test_port_imports_without_jax():
                  "graphs.hetero", "data.mag", "native.host", "sampling.saint",
                  "train.layerwise", "train.mag_trainer", "cli.mag", "graphs.batching",
                  "ops.sorted_segment", "data.molhiv", "models.mol", "train.mol_trainer",
-                 "cli.mol"):
+                 "cli.mol", "analysis", "analysis.timing", "analysis.microbench",
+                 "analysis.correlation", "analysis.curves", "cli.submit", "cli.sweep",
+                 "cli.results"):
         assert f"efficient_gnns_tpu_torch.{name}" in modules, name
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
