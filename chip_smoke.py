@@ -163,7 +163,21 @@ it imports nothing of JAX. Phases, each of which must pass:
     ``MICROBENCH_LOSS_RTOL``, the trace of the bfloat16 train step naming
     K2's and K4's bfloat16 kernels; ``microbench spmm`` at F = 128 with its
     bound; ``sddmm_dot`` forward (K3) and backward (K1 twice) on the card
-    against the plain versions.
+    against the plain versions;
+34. the multi-device layer (``efficient_gnns_tpu_torch/parallel``): the
+    synthetic arxiv graph padded to 169,344 nodes and partitioned for D = 4
+    (``halo_stats``); a world of one NCCL rank on cuda:0 holding
+    ``spmm_sharded`` and ``spmm_halo`` forward and backward at F = 256 to the
+    single-device ``ops.spmm`` (every entry within 1e-5 + 1e-5 * its sum of
+    |terms|); ``parallel.dryrun`` at arxiv shape on a gloo world of 4 ranks,
+    all on cuda:0 (NCCL refuses two ranks on one card): the halo GCN step
+    against the single-device loss (rtol 1e-5), the exchange alone, both
+    SpMMs at F = 256, ring NCE at 8,192 x 256, the two-level step (the flat
+    step's bits) and the MAG step with sharded tables, each rank's K1
+    launches checked against ``PARALLEL_LAUNCHES`` and its section times
+    printed with the card's name and power limit; K1 on rank 0's local and
+    halo CSRs against its plain version and one cuSPARSE call (``K1
+    parallel ...`` records).
 
 ``--only a,b`` runs the named phases alone (see ``main``). The last lines
 are the kernels' JSON record, the ``nvidia-smi`` line and
@@ -3110,13 +3124,151 @@ def phase_microbench(graph):
     return launches, failures
 
 
+PARALLEL_WORLD = 4
+PARALLEL_F = 256
+# K1 launches a rank makes in one run of each dryrun section, from the code:
+# a halo step's forward sums the local and the halo edges, its backward the
+# halo transpose, the local transpose and the send_idx scatter; spmm_sharded
+# one forward and one backward; the ring none; the MAG epoch a forward and a
+# backward a layer a step (3 layers, 2 steps)
+PARALLEL_LAUNCHES = {"halo_step": 5, "halo_exchange": 0, "spmm_sharded": 2, "spmm_halo": 5,
+                     "ring_nce": 0, "halo2_step": 5, "mag_epoch": 2 * 3 * 2}
+
+
+def _parallel_one_rank(device, graph):
+    """A world of one NCCL rank: ``spmm_sharded`` and ``spmm_halo`` forward
+    and backward of ``sum(sin(A @ x))`` at F = ``PARALLEL_F`` on the padded
+    arxiv graph, against the single-device ``ops.spmm`` on the same card
+    (every entry within 1e-5 + 1e-5 * its sum of |terms|), with their K1
+    launches and warm times."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops import cuda as K
+    from efficient_gnns_tpu_torch.ops import spmm
+    from efficient_gnns_tpu_torch.parallel import make_mesh
+    from efficient_gnns_tpu_torch.parallel.partition import (
+        local_partition, partition_graph, partition_graph_halo, spmm_halo, spmm_sharded)
+
+    mesh = make_mesh(1, device=device)
+    g = graph.to(device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(g.num_nodes, PARALLEL_F, generator=gen, device=device)
+
+    def fwd_bwd(fn):
+        v = x.clone().requires_grad_()
+        y = fn(v)
+        torch.sin(y).sum().backward()
+        return y.detach(), v.grad
+
+    ref_y, ref_dx = fwd_bwd(lambda v: spmm(g, v))
+    y_scale = K.csr_segment_sum(x.abs(), g.senders, g.row_offsets, g.edge_weight.abs(),
+                                g.row_split)
+    dx_scale = K.csr_segment_sum(torch.cos(ref_y).abs(), g.t_senders, g.t_row_offsets,
+                                 g.t_edge_weight.abs(), g.t_row_split)
+    out = {}
+    for name, build, fn in (("spmm_sharded", partition_graph, spmm_sharded),
+                            ("spmm_halo", partition_graph_halo, spmm_halo)):
+        local = local_partition(mesh, build(graph, 1))
+        before = K.csr_segment_sum.launches
+        y, dx = fwd_bwd(lambda v: fn(mesh, local, v))
+        torch.cuda.synchronize()
+        launches = K.csr_segment_sum.launches - before
+        ok = bool(((y - ref_y).abs() <= TOL + TOL * y_scale).all()
+                  and ((dx - ref_dx).abs() <= TOL + TOL * dx_scale).all())
+        out[name] = dict(launches=launches, ok=ok, err_y=float((y - ref_y).abs().max()),
+                         err_dx=float((dx - ref_dx).abs().max()),
+                         ms=_time_ms(lambda: fwd_bwd(lambda v: fn(mesh, local, v)), 5))
+    out["single_ms"] = _time_ms(lambda: fwd_bwd(lambda v: spmm(g, v)), 5)
+    return out
+
+
+def phase_parallel(smi):
+    """The multi-device layer (``efficient_gnns_tpu_torch/parallel``) on the
+    one card: the padded arxiv graph's partitions at D = 4 (``halo_stats``);
+    a world of one NCCL rank holding ``spmm_sharded`` / ``spmm_halo`` forward
+    and backward at F = 256 to the single-device ``ops.spmm``; then
+    ``parallel.dryrun`` at arxiv shape on a gloo world of 4 ranks, every one
+    on cuda:0 (the halo GCN step against the single-device loss on the card,
+    rtol 1e-5; the two-level step the flat step's bits; ring NCE at 8,192 x
+    256; the MAG step with sharded tables), every rank's K1 launches checked
+    against ``PARALLEL_LAUNCHES``; and K1 timed on rank 0's local and halo
+    CSRs (``K1 parallel ...`` records). Returns (records, K1 launches of the
+    path, failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.parallel import run_world
+    from efficient_gnns_tpu_torch.parallel.dryrun import build_inputs, run_dryrun
+    from efficient_gnns_tpu_torch.parallel.partition import partition_block
+
+    t_phase = time.time()
+    failures = []
+    inputs = build_inputs(PARALLEL_WORLD, "arxiv")
+    halo = inputs["halo"]
+    print(f"parallel: padded arxiv graph {halo.num_nodes} nodes, {inputs['graph'].n_edge} "
+          f"edges, D={PARALLEL_WORLD}: rows {halo.rows_per_dev}, halo width "
+          f"{halo.halo_width}, local edges {int((halo.r_local < halo.rows_per_dev).sum())}, "
+          f"halo edges {int((halo.r_halo < halo.rows_per_dev).sum())} "
+          f"(built in {time.time() - t_phase:.1f} s)", flush=True)
+
+    t0 = time.time()
+    one = run_world(_parallel_one_rank, 1, backend="nccl", device="cuda",
+                    args=(inputs["graph"],))[0]
+    k1 = 0
+    for name in ("spmm_sharded", "spmm_halo"):
+        r = one[name]
+        k1 += r["launches"]
+        print(f"parallel nccl x1 {name} F={PARALLEL_F} fwd+bwd: max_abs_err out "
+              f"{r['err_y']:.3e} grad {r['err_dx']:.3e} {'ok' if r['ok'] else 'MISMATCH'}, "
+              f"K1 launches {r['launches']}, ms={r['ms']:.3f} (single-device spmm "
+              f"{one['single_ms']:.3f}) [{smi}]", flush=True)
+        if not r["ok"] or r["launches"] != (2 if name == "spmm_sharded" else 5):
+            failures.append(f"parallel nccl x1 {name}")
+    print(f"parallel nccl x1 world: {time.time() - t0:.1f} s", flush=True)
+
+    t0 = time.time()
+    r0 = run_dryrun(inputs, PARALLEL_WORLD, backend="gloo", device="cuda")
+    for r in r0["ranks"]:
+        if r["k1_launches"] != PARALLEL_LAUNCHES:
+            failures.append(f"parallel rank {r['rank']} K1 launches {r['k1_launches']}")
+        k1 += sum(n * len(r["ms"][name]) for name, n in r["k1_launches"].items())
+        print(f"parallel gloo x{PARALLEL_WORLD} rank {r['rank']} on cuda:0 [{smi}]: ms "
+              + ", ".join(f"{k} {' / '.join(f'{v:.1f}' for v in ms)}"
+                          for k, ms in r["ms"].items())
+              + f"; K1 launches a run {r['k1_launches']}", flush=True)
+    rows = halo.halo_width * (PARALLEL_WORLD - 1)
+    print(f"parallel halo exchange a rank: {rows} rows, {r0['exchange_bytes']} bytes at F=40 "
+          f"(the step), {rows * PARALLEL_F * 4} bytes at F={PARALLEL_F}; staged through the "
+          f"host by the port: 0 bytes (gloo takes the CUDA tensors); world "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if not r0["halo2_same_bits"]:
+        failures.append("parallel: the two-level step is not the flat step's bits")
+
+    records = []
+    blk = partition_block(halo, 0)
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    for what, csr, n_in in (("local", blk.local_fwd, halo.rows_per_dev),
+                            ("halo", blk.halo_fwd, PARALLEL_WORLD * halo.halo_width)):
+        csr = csr.to(DEVICE)
+        inp = torch.randn(n_in, PARALLEL_F, generator=gen, device=DEVICE)
+        rec, fails = _k1_case(f"K1 parallel {what} F={PARALLEL_F}", inp, csr.src,
+                              csr.row_offsets, csr.w, csr.split,
+                              (halo.rows_per_dev, n_in),
+                              extra={"world": PARALLEL_WORLD, "rank": 0, "csr": what})
+        rec["launch_key"] = "K1 parallel"
+        records.append(rec)
+        failures += fails
+    print(f"parallel phase: {time.time() - t_phase:.1f} s", flush=True)
+    return records, k1, failures
+
+
 PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
           "thin_group_sweep", "reference", "teacher_reference", "hub_attention",
           "sign_reference", "slice", "teacher_slice", "sign_slice", "checkpoint",
           "ogbn_cache", "runtime_spmm", "teacher_profile", "student_profile", "sign_profile",
           "ppi_kernels", "ppi_reference", "ppi_slice", "ppi_profile", "mag_kernels",
           "mag_reference", "mag_slice", "mag_profile", "mol_reference", "mol_kernels",
-          "mol_slice", "mol_cache", "mol_profile", "heads_bf16_kernels", "microbench")
+          "mol_slice", "mol_cache", "mol_profile", "heads_bf16_kernels", "microbench",
+          "parallel")
 
 
 def main(argv=None) -> int:
@@ -3226,6 +3378,8 @@ def main(argv=None) -> int:
             more, fails = run(name, phase, molds) or (0, [])
             mol_k1, failures = mol_k1 + more, failures + fails
         del molds
+    par_records, par_k1, fails = run("parallel", phase_parallel, smi) or ([], 0, [])
+    records, failures = records + par_records, failures + fails
     run("student_profile", phase_student_profile, ds)
     run("sign_profile", phase_sign_profile, ds)
     if "teacher_profile" in chosen:
@@ -3239,7 +3393,8 @@ def main(argv=None) -> int:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
     launches["K1"] = (k1_launches + launches.get("K1", 0) + rt_launches.get("K1", 0)
-                      + sign_launches + ck_launches + ogbn_launches + mag_k1 + mol_k1)
+                      + sign_launches + ck_launches + ogbn_launches + mag_k1 + mol_k1 + par_k1)
+    launches["K1 parallel"] = par_k1
     launches["K3"] = launches.get("K3", 0) + rt_launches.get("K3", 0)
     for k, n in ppi_launches.items():
         launches[k] = launches.get(k, 0) + n

@@ -10,7 +10,7 @@ to ``forward``.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +31,7 @@ from efficient_gnns_tpu_torch.models.layers import (
     prelu,
     xavier_uniform,
 )
+from efficient_gnns_tpu_torch.parallel.collectives import all_reduce_replicated
 
 
 class GCN(nn.Module):
@@ -38,13 +39,15 @@ class GCN(nn.Module):
     layer; ``out_feat`` = activations entering the final conv.
 
     Weights are initialized from ``torch.Generator().manual_seed(seed)`` on
-    the CPU, then moved to ``device``.
+    the CPU, then moved to ``device``. ``bn_group`` (the JAX
+    ``bn_axis_name``) is the process group over which BatchNorm sums its
+    statistics when the rows are sharded across ranks.
     """
 
     conv_cls = GCNConv
 
     def __init__(self, in_feats: int, hidden: int, out_feats: int, num_layers: int,
-                 dropout: float = 0.5, *, seed: int = 0, device="cuda"):
+                 dropout: float = 0.5, *, seed: int = 0, device="cuda", bn_group=None):
         super().__init__()
         gen = torch.Generator().manual_seed(seed)
         dims = [in_feats] + [hidden] * (num_layers - 1) + [out_feats]
@@ -53,7 +56,8 @@ class GCN(nn.Module):
             for i in range(num_layers)
         )
         self.bns = nn.ModuleList(
-            MaskedBatchNorm(hidden, device=device) for _ in range(num_layers - 1)
+            MaskedBatchNorm(hidden, device=device, group=bn_group)
+            for _ in range(num_layers - 1)
         )
         self.dropout = dropout
 
@@ -83,12 +87,12 @@ class DGLGCN(nn.Module):
     layers; ``out_feat`` = the activations entering the last layer.
 
     Weights are initialized from ``torch.Generator().manual_seed(seed)`` on
-    the CPU, then moved to ``device``.
+    the CPU, then moved to ``device``; ``bn_group`` as in :class:`GCN`.
     """
 
     def __init__(self, in_feats: int, hidden: int, out_feats: int, num_layers: int,
                  dropout: float = 0.5, use_linear: bool = False, *, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", bn_group=None):
         super().__init__()
         gen = torch.Generator().manual_seed(seed)
         dims = [in_feats] + [hidden] * (num_layers - 1) + [out_feats]
@@ -100,7 +104,8 @@ class DGLGCN(nn.Module):
                 linears.append(xavier_uniform(dims[i], dims[i + 1], gen, device))
         self.linear_weights = nn.ParameterList(linears) if use_linear else None
         self.bns = nn.ModuleList(
-            MaskedBatchNorm(hidden, device=device) for _ in range(num_layers - 1)
+            MaskedBatchNorm(hidden, device=device, group=bn_group)
+            for _ in range(num_layers - 1)
         )
         self.dropout = dropout
 
@@ -136,11 +141,13 @@ class ProjectionLinear(nn.Module):
 
 class ProjectionMLP(ProjectionLinear):
     """Linear -> BN -> ReLU projection head for FitNet / GSP / G-CRD; ``mask``
-    removes padding rows from the BatchNorm statistics."""
+    removes padding rows from the BatchNorm statistics; ``bn_group`` as in
+    :class:`GCN`."""
 
-    def __init__(self, in_feats: int, proj_dim: int, *, seed: int = 0, device="cuda"):
+    def __init__(self, in_feats: int, proj_dim: int, *, seed: int = 0, device="cuda",
+                 bn_group=None):
         super().__init__(in_feats, proj_dim, seed=seed, device=device)
-        self.bn = MaskedBatchNorm(proj_dim, device=device)
+        self.bn = MaskedBatchNorm(proj_dim, device=device, group=bn_group)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
         return torch.relu(self.bn(super().forward(x), mask))
@@ -149,10 +156,10 @@ class ProjectionMLP(ProjectionLinear):
 class ProjectionGCD(nn.Module):
     """Graph-conditioned projection ``Linear + GCNConv -> BN -> ReLU`` over
     the whole graph; ``use_linear=False`` drops the parallel linear (the
-    variant composed with logit KD)."""
+    variant composed with logit KD); ``bn_group`` as in :class:`GCN`."""
 
     def __init__(self, in_feats: int, proj_dim: int, use_linear: bool = True, *,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", bn_group=None):
         super().__init__()
         gen = torch.Generator().manual_seed(seed)
         self.conv = GCNConv(in_feats, proj_dim, generator=gen, device=device)
@@ -160,7 +167,7 @@ class ProjectionGCD(nn.Module):
         if use_linear:
             self.lin_weight = xavier_uniform(in_feats, proj_dim, gen, device)
             self.lin_bias = nn.Parameter(torch.zeros(proj_dim, device=device))
-        self.bn = MaskedBatchNorm(proj_dim, device=device)
+        self.bn = MaskedBatchNorm(proj_dim, device=device, group=bn_group)
 
     def forward(self, graph: Graph, x: torch.Tensor):
         h = self.conv(graph, x)
@@ -178,14 +185,15 @@ class GATTeacher(nn.Module):
     (``hidden * num_heads`` wide: the 750-d teacher dump feature).
 
     Weights are initialized from ``torch.Generator().manual_seed(seed)`` on
-    the CPU, then moved to ``device``.
+    the CPU, then moved to ``device``; ``bn_group`` as in :class:`GCN`.
     """
 
     def __init__(self, in_feats: int, hidden: int, out_feats: int,
                  num_layers: int = 3, num_heads: int = 3, dropout: float = 0.75,
                  input_drop: float = 0.0, attn_drop: float = 0.0,
                  edge_drop: float = 0.0, use_attn_dst: bool = True,
-                 use_symmetric_norm: bool = False, *, seed: int = 0, device="cuda"):
+                 use_symmetric_norm: bool = False, *, seed: int = 0, device="cuda",
+                 bn_group=None):
         super().__init__()
         gen = torch.Generator().manual_seed(seed)
         convs = []
@@ -202,7 +210,7 @@ class GATTeacher(nn.Module):
             ))
         self.convs = nn.ModuleList(convs)
         self.bns = nn.ModuleList(
-            MaskedBatchNorm(hidden * num_heads, device=device)
+            MaskedBatchNorm(hidden * num_heads, device=device, group=bn_group)
             for _ in range(num_layers - 1)
         )
         self.bias_last = ElementWiseLinear(out_feats, use_weight=False, device=device)
@@ -346,6 +354,41 @@ class RGCN(nn.Module):
             for i in range(num_layers))
         self.num_node_types, self.num_edge_types = num_node_types, num_edge_types
         self.feat_dim, self.dropout = hidden, dropout
+        self.emb_group, self.emb_lo = None, {}
+
+    def shard_embeddings(self, group, index: int, size: int) -> Dict[str, tuple]:
+        """Keep rows ``[lo, hi)`` of every table on this rank, the block of
+        rank ``index`` of ``size`` that ``P(axis, None)`` would give it
+        (``ceil(rows / size)`` rows a block; JAX needs ``size`` to divide the
+        rows); lookups then sum the ranks' blocks over ``group``. Returns
+        ``{name: (old parameter, new parameter, lo)}``."""
+        swapped = {}
+        for t, n in self.emb_sizes:
+            name, block = str(t), -(-n // size)
+            lo = min(index * block, n)
+            old = self.embs[name]
+            self.embs[name] = nn.Parameter(old.detach()[lo:min(lo + block, n)].clone())
+            self.emb_lo[name] = lo
+            swapped[name] = (old, self.embs[name], lo)
+        self.emb_group = group
+        return swapped
+
+    def _lookup(self, name: str, idx: torch.Tensor) -> torch.Tensor:
+        table = self.embs[name]
+        if self.emb_group is None:
+            return F.embedding(idx, table)
+        # this rank's rows, zeros elsewhere; the sum over the ranks is exact
+        # (one value and zeros), and every rank runs the same step on the
+        # same sample, so the backward is the identity and each rank's table
+        # gradient is its own rows'
+        local = idx - self.emb_lo[name]
+        own = (local >= 0) & (local < table.shape[0])
+        if table.shape[0]:
+            rows = torch.where(own[:, None],
+                               F.embedding(local.clamp(0, table.shape[0] - 1), table), 0.0)
+        else:
+            rows = table.new_zeros((idx.shape[0], table.shape[1]))
+        return all_reduce_replicated(rows, self.emb_group)
 
     def embed(self, x: torch.Tensor, node_type: torch.Tensor,
               local_node_idx: torch.Tensor) -> torch.Tensor:
@@ -356,10 +399,11 @@ class RGCN(nn.Module):
         gather is ``F.embedding``, whose CUDA backward sums repeated indices
         in parallel segments after a sort; the backward of ``table[idx]``
         walks each index's repeats in one warp, one after the other (32 ms a
-        table at ogbn-mag's shape, on an H100)."""
+        table at ogbn-mag's shape, on an H100). With the tables sharded
+        (:meth:`shard_embeddings`) each rank looks up its own rows."""
         h = x
         for t, size in self.emb_sizes:
-            rows = F.embedding(local_node_idx.long().clamp(0, size - 1), self.embs[str(t)])
+            rows = self._lookup(str(t), local_node_idx.long().clamp(0, size - 1))
             h = torch.where((node_type == t)[:, None], rows.to(h.dtype), h)
         return h
 

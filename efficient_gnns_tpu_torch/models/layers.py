@@ -21,6 +21,7 @@ from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.ops import spmm, spmm_mean
 from efficient_gnns_tpu_torch.ops.attention import gat_attention, sample_edge_masks
 from efficient_gnns_tpu_torch.ops.hub_attention import hub_gat_attention, supports_hub_attention
+from efficient_gnns_tpu_torch.parallel.collectives import all_reduce_stat
 
 
 class MaskedBatchNorm(nn.Module):
@@ -29,12 +30,19 @@ class MaskedBatchNorm(nn.Module):
     statistics, biased variance, running averages
     ``ra = momentum * ra + (1 - momentum) * batch`` with ``momentum = 0.9``.
     ``nn.BatchNorm1d`` keeps an unbiased running variance and weighs the
-    batch by 0.1 the other way round, so it does not match."""
+    batch by 0.1 the other way round, so it does not match.
+
+    With a process ``group`` (the JAX layer's ``axis_name``) each rank holds
+    a row shard, and the count and both sums are summed over the group
+    before the mean and variance (``parallel.collectives.all_reduce_stat``,
+    whose backward sums the ranks' cotangents), so every rank normalises
+    with the statistics of all rows and updates its running statistics
+    identically."""
 
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5,
-                 device="cuda"):
+                 device="cuda", group=None):
         super().__init__()
-        self.momentum, self.epsilon = momentum, epsilon
+        self.momentum, self.epsilon, self.group = momentum, epsilon, group
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
@@ -52,6 +60,10 @@ class MaskedBatchNorm(nn.Module):
                 count = torch.tensor(float(x.shape[0]), device=x.device)
                 s1 = xf.sum(0)
                 s2 = (xf * xf).sum(0)
+            if self.group is not None:
+                f = s1.shape[0]
+                stats = all_reduce_stat(torch.cat([count.reshape(1), s1, s2]), self.group)
+                count, s1, s2 = stats[0], stats[1:f + 1], stats[f + 1:]
             count = count.clamp_min(1.0)
             mean = s1 / count
             var = (s2 / count - mean * mean).clamp_min(0.0)

@@ -1,0 +1,29 @@
+"""The multi-device layer on ``torch.distributed`` (counterpart of
+``efficient_gnns_tpu/parallel``): a mesh of ranks, edge-partitioned and halo
+SpMM on K1, ring GSP / NCE, and the launcher that starts a world of ranks
+(``launch.run_world``, the counterpart of the JAX tests' virtual CPU mesh).
+``parallel/dryrun.py`` drives every path once."""
+
+from efficient_gnns_tpu_torch.parallel.launch import run_world
+from efficient_gnns_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate, shard_rows
+from efficient_gnns_tpu_torch.parallel.partition import (
+    PartitionedGraph,
+    local_partition,
+    partition_graph,
+    spmm_sharded,
+)
+from efficient_gnns_tpu_torch.parallel.ring import ring_gsp_term, ring_nce_term
+
+__all__ = [
+    "make_mesh",
+    "replicate",
+    "shard_rows",
+    "PartitionedGraph",
+    "partition_graph",
+    "spmm_sharded",
+    "ring_gsp_term",
+    "ring_nce_term",
+    "Mesh",
+    "local_partition",
+    "run_world",
+]

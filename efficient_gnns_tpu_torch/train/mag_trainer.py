@@ -396,5 +396,25 @@ class MagTrainer:
         sizes = [len(self.ds.split_idx[k]) for k in ("train", "valid", "test")]
         return tuple(c / max(n, 1) for c, n in zip(correct.tolist(), sizes))
 
+    def shard_embeddings(self, mesh, axis: str = "data") -> None:
+        """Row-shard the student's featureless-node-type embedding tables,
+        and their Adam moments, over ``mesh``'s ``axis``: each rank keeps
+        its block of rows (``RGCN.shard_embeddings``) and every other
+        parameter stays replicated. Every rank must then run the same steps
+        on the same samples (same seed), as the JAX trainer does with a
+        sharded state; a lookup sums the ranks' blocks. Without a mesh
+        nothing changes."""
+        swapped = self.model.shard_embeddings(mesh.group(axis), mesh.index(axis),
+                                              mesh.size(axis))
+        for old, new, lo in swapped.values():
+            for group in self.opt.param_groups:
+                group["params"] = [new if p is old else p for p in group["params"]]
+            state = self.opt.state.pop(old, None)
+            if state:
+                self.opt.state[new] = {
+                    k: v[lo:lo + new.shape[0]].clone()
+                    if torch.is_tensor(v) and v.shape == old.shape else v
+                    for k, v in state.items()}
+
     def num_params(self) -> int:
         return sum(p.numel() for p in self.model.parameters())

@@ -43,7 +43,9 @@ def test_port_imports_without_jax():
                  "ops.sorted_segment", "data.molhiv", "models.mol", "train.mol_trainer",
                  "cli.mol", "analysis", "analysis.timing", "analysis.microbench",
                  "analysis.correlation", "analysis.curves", "cli.submit", "cli.sweep",
-                 "cli.results"):
+                 "cli.results", "parallel", "parallel.mesh", "parallel.launch",
+                 "parallel.collectives", "parallel.partition", "parallel.ring",
+                 "parallel.dryrun"):
         assert f"efficient_gnns_tpu_torch.{name}" in modules, name
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
