@@ -170,14 +170,21 @@ it imports nothing of JAX. Phases, each of which must pass:
     ``spmm_sharded`` and ``spmm_halo`` forward and backward at F = 256 to the
     single-device ``ops.spmm`` (every entry within 1e-5 + 1e-5 * its sum of
     |terms|); ``parallel.dryrun`` at arxiv shape on a gloo world of 4 ranks,
-    all on cuda:0 (NCCL refuses two ranks on one card): the halo GCN step
+    all on cuda:0 (NCCL refuses two ranks on one card): the data-parallel
+    GCN-KD steps (2 x 256, ``kd``) and evaluation on a (2, 2) ``("data",
+    "model")`` mesh and the SIGN dp x tp step (6 hops x 512, batch 50,000),
+    each step's loss against the single-device loss (rtol 1e-5) and the
+    replicated parameters the same bits on every rank, with each rank's
+    exchange bytes and the SIGN step's collectives timed inside its last
+    run; the halo GCN step
     against the single-device loss (rtol 1e-5), the exchange alone, both
     SpMMs at F = 256, ring NCE at 8,192 x 256, the two-level step (the flat
     step's bits) and the MAG step with sharded tables, each rank's K1
     launches checked against ``PARALLEL_LAUNCHES`` and its section times
     printed with the card's name and power limit; K1 on rank 0's local and
-    halo CSRs against its plain version and one cuSPARSE call (``K1
-    parallel ...`` records).
+    halo CSRs (of D = 4, and of the GCN-KD section's D = 2 at its F = 256
+    and 40) against its plain version and one cuSPARSE call (``K1 parallel
+    ...`` records).
 
 ``--only a,b`` runs the named phases alone (see ``main``). The last lines
 are the kernels' JSON record, the ``nvidia-smi`` line and
@@ -3130,8 +3137,11 @@ PARALLEL_F = 256
 # a halo step's forward sums the local and the halo edges, its backward the
 # halo transpose, the local transpose and the send_idx scatter; spmm_sharded
 # one forward and one backward; the ring none; the MAG epoch a forward and a
-# backward a layer a step (3 layers, 2 steps)
-PARALLEL_LAUNCHES = {"halo_step": 5, "halo_exchange": 0, "spmm_sharded": 2, "spmm_halo": 5,
+# backward a layer a step (3 layers, 2 steps); the GCN-KD train step two
+# halo SpMMs forward (2 each) and backward (3 each), its evaluation two
+# forward; the SIGN step none (dense layers and column gathers only)
+PARALLEL_LAUNCHES = {"gcn_kd_step": 2 * (2 + 3), "gcn_kd_eval": 2 * 2, "sign_step": 0,
+                     "halo_step": 5, "halo_exchange": 0, "spmm_sharded": 2, "spmm_halo": 5,
                      "ring_nce": 0, "halo2_step": 5, "mag_epoch": 2 * 3 * 2}
 
 
@@ -3188,12 +3198,14 @@ def phase_parallel(smi):
     a world of one NCCL rank holding ``spmm_sharded`` / ``spmm_halo`` forward
     and backward at F = 256 to the single-device ``ops.spmm``; then
     ``parallel.dryrun`` at arxiv shape on a gloo world of 4 ranks, every one
-    on cuda:0 (the halo GCN step against the single-device loss on the card,
-    rtol 1e-5; the two-level step the flat step's bits; ring NCE at 8,192 x
-    256; the MAG step with sharded tables), every rank's K1 launches checked
-    against ``PARALLEL_LAUNCHES``; and K1 timed on rank 0's local and halo
-    CSRs (``K1 parallel ...`` records). Returns (records, K1 launches of the
-    path, failures)."""
+    on cuda:0 (the GCN-KD dp steps, the SIGN dp x tp step and the halo GCN
+    step against the single-device losses on the card, rtol 1e-5; the
+    two-level step the flat step's bits; ring NCE at 8,192 x 256; the MAG
+    step with sharded tables), every rank's K1 launches checked against
+    ``PARALLEL_LAUNCHES``, its exchange bytes a step printed; and K1 timed on
+    rank 0's local and halo CSRs of D = 4 at F = 256 and of the GCN-KD
+    section's D = 2 at F = 256 and 40 (``K1 parallel ...`` records). Returns
+    (records, K1 launches of the path, failures)."""
     import torch
 
     from efficient_gnns_tpu_torch.parallel import run_world
@@ -3242,21 +3254,38 @@ def phase_parallel(smi):
           f"{time.time() - t0:.1f} s", flush=True)
     if not r0["halo2_same_bits"]:
         failures.append("parallel: the two-level step is not the flat step's bits")
+    for r in r0["ranks"]:
+        print(f"parallel gloo x{PARALLEL_WORLD} rank {r['rank']} exchange a step "
+              f"[{smi}]: GCN-KD halo rows {r['gcn_kd_exchange_bytes']} bytes each way "
+              f"(forward and backward at F=256 and 40), SIGN column gathers "
+              f"{r['sign_gather_bytes']} bytes received (as many reduce-scattered back); "
+              f"the SIGN step's collectives inside its last run "
+              f"{r['exchange_ms']['sign_step']:.1f} ms of {r['ms']['sign_step'][-1]:.1f} ms "
+              f"({100 * r['exchange_ms']['sign_step'] / r['ms']['sign_step'][-1]:.1f}%)",
+              flush=True)
+    print(f"parallel GCN-KD dp step (2, 2) losses {r0['gcn_kd_losses']} single device "
+          f"{r0['single_gcn_kd_losses']} (rtol 1e-5), accuracies {r0['gcn_kd_accs']}; "
+          f"SIGN dp x tp step (2, 2) losses {r0['sign_losses']} single device "
+          f"{r0['single_sign_losses']} (rtol 1e-5); replicated parameters the same bits on "
+          f"every rank", flush=True)
 
     records = []
-    blk = partition_block(halo, 0)
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    for what, csr, n_in in (("local", blk.local_fwd, halo.rows_per_dev),
-                            ("halo", blk.halo_fwd, PARALLEL_WORLD * halo.halo_width)):
-        csr = csr.to(DEVICE)
-        inp = torch.randn(n_in, PARALLEL_F, generator=gen, device=DEVICE)
-        rec, fails = _k1_case(f"K1 parallel {what} F={PARALLEL_F}", inp, csr.src,
-                              csr.row_offsets, csr.w, csr.split,
-                              (halo.rows_per_dev, n_in),
-                              extra={"world": PARALLEL_WORLD, "rank": 0, "csr": what})
-        rec["launch_key"] = "K1 parallel"
-        records.append(rec)
-        failures += fails
+    for part, widths in ((halo, (PARALLEL_F,)), (inputs["halo_dp"], (PARALLEL_F, 40))):
+        blk = partition_block(part, 0)
+        d = part.num_devices
+        for f in widths:
+            for what, csr, n_in in (("local", blk.local_fwd, part.rows_per_dev),
+                                    ("halo", blk.halo_fwd, d * part.halo_width)):
+                csr = csr.to(DEVICE)
+                inp = torch.randn(n_in, f, generator=gen, device=DEVICE)
+                rec, fails = _k1_case(f"K1 parallel D={d} {what} F={f}", inp, csr.src,
+                                      csr.row_offsets, csr.w, csr.split,
+                                      (part.rows_per_dev, n_in),
+                                      extra={"world": d, "rank": 0, "csr": what})
+                rec["launch_key"] = "K1 parallel"
+                records.append(rec)
+                failures += fails
     print(f"parallel phase: {time.time() - t_phase:.1f} s", flush=True)
     return records, k1, failures
 

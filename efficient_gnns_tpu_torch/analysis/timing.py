@@ -5,7 +5,9 @@
 PyTorch returns before the card finishes, so every timed call is closed by
 ``torch.cuda.synchronize`` on a CUDA device; on the CPU the calls are
 synchronous and nothing is a device metric (``device_memory_stats`` is
-empty there, as it is for the JAX package on its CPU backend).
+empty there, as it is for the JAX package on its CPU backend). ``device``
+defaults to the current CUDA device, and the functions raise without one:
+the CPU is timed only when the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def _device(device=None) -> torch.device:
+    """``device``; ``None`` is the current CUDA device, and raises where
+    there is no card (the CPU is measured only when asked for)."""
     if device is not None:
         return torch.device(device)
-    if torch.cuda.is_available():
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to time on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def _sync(device: torch.device) -> None:
@@ -42,7 +46,8 @@ def device_memory_stats(device=None) -> Dict[str, int]:
     """Device memory counters in bytes: ``bytes_in_use`` and
     ``peak_bytes_in_use`` of PyTorch's caching allocator
     (``torch.cuda.memory_stats``) and ``bytes_limit``, the card's total
-    (``torch.cuda.mem_get_info``). Empty for a CPU device."""
+    (``torch.cuda.mem_get_info``) of ``device`` (the current CUDA device by
+    default). Empty for a CPU device."""
     dev = _device(device)
     if dev.type != "cuda":
         return {}

@@ -134,14 +134,34 @@ class SAGEConv(nn.Module):
         return agg @ self.weight + self.bias.to(agg.dtype) + x @ self.root_weight
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]):
-    """Inverted dropout drawing its mask from ``generator`` (flax semantics:
+class RowBlockGenerator:
+    """A ``torch.Generator`` for one rank's rows of row-sharded arrays: each
+    draw is made at the whole array's shape (``num_rows`` rows) from
+    ``generator``, as a single device makes it, and cut to the rows ``[lo,
+    lo + rows)``; so the ranks' dropout masks are, together, the single
+    device's, and the generator advances as it does there."""
+
+    def __init__(self, generator: torch.Generator, num_rows: int, lo: int):
+        self.generator, self.num_rows, self.lo = generator, num_rows, lo
+
+    def rand(self, shape, device) -> torch.Tensor:
+        whole = torch.rand((self.num_rows,) + tuple(shape[1:]), generator=self.generator,
+                           device=device)
+        return whole[self.lo:self.lo + shape[0]]
+
+
+def dropout(x: torch.Tensor, rate: float, generator):
+    """Inverted dropout drawing its mask from ``generator`` (a
+    ``torch.Generator`` or a :class:`RowBlockGenerator`; flax semantics:
     keep with probability ``1 - rate``, scale kept values by ``1/(1-rate)``)."""
     if rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    if isinstance(generator, RowBlockGenerator):
+        keep = generator.rand(x.shape, x.device) >= rate
+    else:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -381,10 +401,14 @@ class FeedForwardNet(nn.Module):
                             if n_layers > 1 else None)
         self.dropout = dropout
 
+    def linear(self, x: torch.Tensor, i: int) -> torch.Tensor:
+        """Dense layer ``i``: ``x @ weights[i] + biases[i]``."""
+        return x @ self.weights[i] + self.biases[i]
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
         last = len(self.weights) - 1
-        for i, (w, b) in enumerate(zip(self.weights, self.biases)):
-            x = x @ w + b
+        for i in range(last + 1):
+            x = self.linear(x, i)
             if i < last:
                 x = prelu(x, self.prelu_alpha)
                 if self.training:

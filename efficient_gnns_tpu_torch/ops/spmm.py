@@ -19,6 +19,11 @@ transpose CSR with the weights permuted by ``csc_perm``, and ``dw`` is K4.
 K2 and K4 read ``x`` and the cotangent in ``dispatch.message_dtype()``; the
 head weights stay float32, sums are float32 and ``out`` / ``dx`` take
 ``x``'s dtype.
+
+On a rank's row block of a sharded graph
+(``parallel.partition.ShardedGraph``) ``spmm`` is the halo SpMM over the
+rank's CSRs (``parallel.partition.spmm_halo``), K1 as well, on float32
+messages only.
 """
 
 from __future__ import annotations
@@ -133,6 +138,15 @@ def spmm(
         raise ValueError(
             f"spmm: x must be [num_nodes={graph.num_nodes}, F], got {tuple(x.shape)}"
         )
+    if not isinstance(graph, Graph):
+        # a rank's row block (parallel.partition.ShardedGraph): the halo SpMM
+        # over its CSRs, with the graph's static weights
+        if edge_weight is not None or transpose or message_dtype is not None or dst_rows:
+            raise ValueError("spmm: a sharded graph takes its static weights only")
+        if dispatch.message_dtype() != torch.float32:
+            raise ValueError("spmm: a sharded graph reads float32 messages only, not "
+                             f"dispatch.message_dtype() {dispatch.message_dtype()}")
+        return graph.spmm(x)
     if dst_rows and (graph.max_dst is None or edge_weight is not None or transpose
                      or graph.node_scale is not None):
         raise ValueError("spmm: dst_rows needs a graph built with max_dst, its static "

@@ -83,6 +83,39 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     return _AllGatherRows.apply(x, group)
 
 
+class _AllGatherCols(torch.autograd.Function):
+    """Forward: the group's ``[rows, c]`` blocks side by side along the last
+    dim, in group-rank order. Backward: reduce-scatter (sum) of the
+    cotangent, each rank keeping its own block's columns (each rank's
+    cotangent of the whole width is only its share: the input gradient of
+    its column block of the next layer, or its part of a loss summed over
+    the group)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        d, _ = _size_rank(group)
+        # rows-major gather of the transposed blocks: block o is rank o's columns
+        out = x.new_empty((d * x.shape[-1],) + tuple(x.shape[:-1]))
+        _all_gather(out, x.movedim(-1, 0).contiguous(), group=group)
+        return out.movedim(0, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        d, _ = _size_rank(ctx.group)
+        g = g.movedim(-1, 0).contiguous()
+        out = g.new_empty((g.shape[0] // d,) + tuple(g.shape[1:]))
+        _reduce_scatter(out, g, group=ctx.group)
+        return out.movedim(0, -1).contiguous(), None
+
+
+def all_gather_cols(x: torch.Tensor, group) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=-1, tiled=True)``: every rank's
+    ``[rows, c]`` block stacked along the last dim, in group-rank order; the
+    gradient is summed over the group and each rank keeps its own columns."""
+    return _AllGatherCols.apply(x, group)
+
+
 class _AllToAllBlocks(torch.autograd.Function):
     """Forward: block ``o`` of ``x`` (leading dim = group size) goes to rank
     ``o``; block ``o`` of the output came from rank ``o``. Backward: the
@@ -181,3 +214,21 @@ def all_reduce_replicated(x: torch.Tensor, group) -> torch.Tensor:
     """Sum over the group of terms that end in a value every rank computes
     and backpropagates identically; backward the identity."""
     return _AllReduceReplicated.apply(x, group)
+
+
+def all_reduce_grads(params, group) -> None:
+    """Each parameter's ``.grad`` replaced by its sum over the group, in one
+    all-reduce of the gradients laid end to end (a rank without one adds
+    zeros; a parameter without one on every rank keeps ``None``, as an
+    optimizer skips it on one device). Every rank ends with the same bits."""
+    params = list(params)
+    if not params:
+        return
+    g0 = next((p.grad for p in params if p.grad is not None), params[0])
+    has = torch.tensor([p.grad is not None for p in params], dtype=g0.dtype, device=g0.device)
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                      for p in params] + [has])
+    dist.all_reduce(flat, group=group)
+    grads, has = flat.split([flat.numel() - len(params), len(params)])
+    for p, g, h in zip(params, grads.split([p.numel() for p in params]), has.tolist()):
+        p.grad = g.view_as(p) if h else None

@@ -1,6 +1,6 @@
 """A device mesh over ``torch.distributed`` ranks (counterpart of
 ``efficient_gnns_tpu/parallel/mesh.py``: ``make_mesh``, ``shard_rows``,
-``replicate``).
+``replicate``; ``shard_cols``, the ``P(None, axis)`` block).
 
 A JAX mesh is an array of devices in one process; here each rank is one
 process that owns one device, and a :class:`Mesh` is this rank's view of
@@ -129,6 +129,18 @@ def shard_rows(mesh: Mesh, x: torch.Tensor, axis: str = "data") -> torch.Tensor:
     rows = x.shape[0] // d
     i = mesh.index(axis)
     return x[i * rows:(i + 1) * rows].to(mesh.device).contiguous()
+
+
+def shard_cols(mesh: Mesh, w: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """This rank's contiguous block of the last dim of ``w`` (the whole
+    array, identical on every rank), on the mesh's device: the block that
+    ``P(None, axis)`` gives the device at this rank's index along ``axis``."""
+    d = mesh.size(axis)
+    if w.shape[-1] % d:
+        raise ValueError(f"columns ({w.shape[-1]}) must divide the '{axis}' axis ({d})")
+    cols = w.shape[-1] // d
+    i = mesh.index(axis)
+    return w[..., i * cols:(i + 1) * cols].to(mesh.device).contiguous()
 
 
 def replicate(mesh: Mesh, tensors_or_module):

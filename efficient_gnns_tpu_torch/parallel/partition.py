@@ -27,6 +27,10 @@ that no call derives one.
   halo gradient onto its owner row.
 * :func:`spmm_halo_2level`: the same exchange over a ``(host, chip)`` mesh:
   one all-to-all within each host, then ``H - 1`` ring steps across hosts.
+
+:class:`ShardedGraph` (:func:`shard_graph`) stands in for a ``Graph`` in the
+unchanged models: ``ops.spmm`` on it is :func:`spmm_halo` over the rank's
+CSRs, and its ``node_mask`` is the rank's block of the graph's.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from efficient_gnns_tpu_torch.parallel.collectives import (
     all_to_all_blocks,
     ring_shift,
 )
-from efficient_gnns_tpu_torch.parallel.mesh import Mesh
+from efficient_gnns_tpu_torch.parallel.mesh import Mesh, shard_rows
 
 # --------------------------------------------------------------------------
 # host builders (NumPy; the arrays of the JAX builders)
@@ -491,3 +495,37 @@ def spmm_halo_2level(mesh: Mesh, local: LocalHalo, x: torch.Tensor,
     out = _CsrSpMM.apply(x, local.local_fwd, local.local_bwd)
     table = torch.stack(recv).reshape(local.num_devices * hw, f)
     return out + _CsrSpMM.apply(table, local.halo_fwd, local.halo_bwd)
+
+
+@dataclasses.dataclass
+class ShardedGraph:
+    """This rank's row block of a graph partitioned by
+    :func:`partition_graph_halo`, in the place of a ``Graph``: ``ops.spmm``
+    on it is :func:`spmm_halo` over ``local`` along ``axis`` of ``mesh``, so
+    ``GCNConv`` and ``GCN`` run unchanged on row shards (the counterpart of
+    the JAX trainer's arrays under ``shard_rows``). ``node_mask`` is the
+    rank's block of the graph's."""
+
+    local: LocalHalo
+    mesh: Mesh
+    axis: str
+    node_mask: torch.Tensor
+
+    @property
+    def num_nodes(self) -> int:
+        return self.local.rows_per_dev
+
+    def to(self, device) -> "ShardedGraph":
+        return ShardedGraph(_to(dataclasses.replace(self.local), device), self.mesh, self.axis,
+                            self.node_mask.to(device))
+
+    def spmm(self, x: torch.Tensor) -> torch.Tensor:
+        return spmm_halo(self.mesh, self.local, x, self.axis)
+
+
+def shard_graph(mesh: Mesh, part: HaloPartition, node_mask, axis: str = "data") -> ShardedGraph:
+    """This rank's :class:`ShardedGraph` of ``part`` (built for the size of
+    ``axis``) on the mesh's device; ``node_mask`` is the whole graph's."""
+    mask = torch.as_tensor(np.asarray(node_mask, dtype=bool))
+    return ShardedGraph(local_partition(mesh, part, axis), mesh, axis,
+                        shard_rows(mesh, mask, axis))

@@ -3,9 +3,10 @@
 ``read_jsonl``.
 
 Correlations and CKA agree to rtol 1e-5 (float32 Gram blocks on both sides,
-float64 statistics). The timing helpers run on the CPU here, where there is
-no device metric: ``device_memory_stats`` is empty and a trace holds no
-device track. ``microbench gat-step`` runs at a tiny size on the CPU; its
+float64 statistics). The timing helpers run on the CPU here when asked
+for, where there is no device metric: ``device_memory_stats("cpu")`` is
+empty and a trace holds no device track; without a device they raise here,
+since their default is the card. ``microbench gat-step`` runs at a tiny size on the CPU; its
 first step's loss is held to the JAX trainer's on the same graph with every
 dropout 0 and a label split that draws nothing (the randomness of the two
 packages differs): rtol 1e-4 in float32, as ``tests/test_torch_gat_teacher.py``
@@ -117,8 +118,9 @@ def test_plot_curves_names_matplotlib_when_missing(tmp_path, monkeypatch):
 def test_timing_on_the_cpu(tmp_path):
     x = torch.ones(8, 8)
     assert timing.device_memory_stats("cpu") == {}
-    if not torch.cuda.is_available():
-        assert timing.device_memory_stats() == {}
+    if not torch.cuda.is_available():  # no silent fall back to the CPU
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            timing.device_memory_stats()
     got = timing.time_inference(lambda a: a @ a, x, runs=3, warmup=1, device="cpu")
     want = jax_timing.time_inference(lambda a: a @ a, jnp.ones((8, 8)), runs=3, warmup=1)
     assert set(got) == set(want) == {"mean_s", "min_s", "max_s", "runs"}

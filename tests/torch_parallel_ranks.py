@@ -141,3 +141,158 @@ def mag_trainer(device, steps, shard_after=None):
 def world4_mag(device, steps):
     """Sharded before the first step, and after the first."""
     return {after: mag_trainer(device, steps, shard_after=after) for after in (0, 1)}
+
+
+# --------------------------------------------------------------------------
+# the dp GCN-KD and SIGN dp x tp sections (tests/test_torch_parallel_dp.py)
+# --------------------------------------------------------------------------
+
+DP_DATA = dict(num_nodes=1024, num_edges=4096, feat_dim=32, num_classes=8, seed=0)
+SIGN_HOPS, SIGN_HIDDEN = 3, 64
+
+
+def _np(tensors):
+    return {n: t.detach().cpu().numpy().copy() for n, t in tensors}
+
+
+def _gcn(mesh, ds, part, mode, dropout, state=None):
+    from efficient_gnns_tpu_torch.parallel.dryrun import teacher_logits
+    from efficient_gnns_tpu_torch.parallel.sharded_trainer import ShardedNodeDistillTrainer
+    from efficient_gnns_tpu_torch.train.config import DistillConfig
+
+    cfg = DistillConfig(training=mode, hidden=16, num_layers=2, dropout=dropout)
+    tr = ShardedNodeDistillTrainer(mesh, cfg, part, ds.x, ds.y, ds.split_idx, 8,
+                                   node_mask=ds.graph.node_mask.numpy().copy(),
+                                   teacher_logits=teacher_logits(ds.y, 8), seed=0)
+    if state is not None:
+        tr.model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return tr
+
+
+def _gcn_step(tr):
+    loss = tr.train_epoch(0)["loss"]
+    return dict(loss=loss, grads=_np((n, p.grad) for n, p in tr.model.named_parameters()),
+                state=_np(tr.model.state_dict().items()))
+
+
+def sign_model(dropout, state=None, device="cpu"):
+    from efficient_gnns_tpu_torch.models import SIGN
+
+    model = SIGN(DP_DATA["feat_dim"], SIGN_HIDDEN, DP_DATA["num_classes"], SIGN_HOPS,
+                 ff_layers=2, dropout=dropout, seed=0, device=device)
+    if state is not None:
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model
+
+
+def _sign_steps(mesh, inputs, dropout, steps=1, state=None):
+    """``steps`` dp x tp steps of a SIGN (each with the dropout seed 2);
+    returns the losses, the whole gradients and parameters after the last
+    (gathered over ``model``) and this rank's own tensors."""
+    from efficient_gnns_tpu_torch.parallel import tensor
+
+    model = tensor.shard_sign(sign_model(dropout, state), mesh)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    feats = [shard_rows(mesh, torch.from_numpy(f)) for f in inputs["sign_feats"]]
+    labels = shard_rows(mesh, torch.from_numpy(inputs["sign_labels"]))
+    gen, losses = torch.Generator(), []
+    for _ in range(steps):
+        gen.manual_seed(2)
+        losses.append(float(tensor.sign_dp_tp_step(model, opt, feats, labels, mesh, gen)))
+    group = mesh.group("model")
+    with torch.no_grad():
+        grads = {n: tensor.all_gather_cols(p.grad, group) if n in model.tp_split else p.grad
+                 for n, p in model.named_parameters()}
+    return dict(losses=losses, grads=_np(grads.items()),
+                params=_np(tensor.gather_sign(model, mesh).items()),
+                own=_np(model.named_parameters()), split=sorted(model.tp_split),
+                model_index=mesh.index("model"))
+
+
+class _GatherColsSliceBackward(torch.autograd.Function):
+    """The column gather with the wrong backward: each rank keeps its
+    columns of its own cotangent, summing nothing."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from efficient_gnns_tpu_torch.parallel.collectives import all_gather_cols
+
+        ctx.lo, ctx.cols = dist.get_rank(group) * x.shape[-1], x.shape[-1]
+        return all_gather_cols(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.lo:ctx.lo + ctx.cols].contiguous(), None
+
+
+def dp_world(device, inputs):
+    """The GCN-KD steps on ``inputs["gcn_mesh"]`` and the SIGN steps on
+    ``inputs["sign_mesh"]`` (``(axes, shape)``): from the JAX weights with
+    dropout 0, and from the seed with dropout on; row blocks of dropout
+    masks; with ``inputs["wrong"]`` each wrong choice of a collective's
+    backward or group."""
+    from efficient_gnns_tpu_torch.data import synthetic_node_dataset
+    from efficient_gnns_tpu_torch.models.layers import RowBlockGenerator, dropout
+    from efficient_gnns_tpu_torch.parallel import sharded_trainer, tensor
+    from efficient_gnns_tpu_torch.parallel.collectives import all_reduce_grads
+
+    d = dist.get_world_size()
+    gmesh = make_mesh(d, *inputs["gcn_mesh"], device=device)
+    smesh = make_mesh(d, *inputs["sign_mesh"], device=device)
+    ds = synthetic_node_dataset(**DP_DATA)
+    part = partition_graph_halo(ds.graph, gmesh.size("data"))
+    out = {"rank": dist.get_rank()}
+    for mode in ("supervised", "kd"):
+        out[f"gcn_{mode}"] = _gcn_step(_gcn(gmesh, ds, part, mode, 0.0, inputs["gcn_state"]))
+    tr = _gcn(gmesh, ds, part, "kd", 0.5)
+    out["gcn_dropout"] = [tr.train_epoch(e)["loss"] for e in range(2)]
+    out["gcn_run_epochs"] = tr.run_epochs(2, 2)
+    rows = tr.x.shape[0]
+    gen = torch.Generator().manual_seed(7)
+    blocks = RowBlockGenerator(gen, rows * gmesh.size("data"), tr.lo)
+    out["masks"] = (tr.lo, [dropout(torch.ones(rows, 5), 0.5, blocks).numpy() for _ in range(2)])
+    out["sign"] = _sign_steps(smesh, inputs, 0.0, state=inputs["sign_state"])
+    out["sign_dropout"] = _sign_steps(smesh, inputs, 0.1, steps=2)["losses"]
+    # a gradient on rank 0 only, and one on no rank
+    some, none = torch.nn.Parameter(torch.ones(2)), torch.nn.Parameter(torch.ones(3))
+    if dist.get_rank() == 0:
+        some.grad = torch.tensor([2.0, -3.0])
+    all_reduce_grads([some, none], dist.group.WORLD)
+    out["grads_none"] = (some.grad.numpy(), none.grad)
+    if inputs.get("wrong"):
+        with mock.patch.object(sharded_trainer, "all_reduce_replicated", all_reduce_stat):
+            out["gcn_loss_sum_backward"] = _gcn_step(
+                _gcn(gmesh, ds, part, "kd", 0.0, inputs["gcn_state"]))
+        data = smesh.group("data")
+        wrong = {
+            "sign_loss_sum_backward": ("all_reduce_replicated", all_reduce_stat),
+            "sign_gather_slice_backward": ("all_gather_cols", _GatherColsSliceBackward.apply),
+            # the replicated gradients summed over data only, not over model
+            "sign_replicated_over_data": ("all_reduce_grads",
+                                          lambda params, group: all_reduce_grads(params, data)),
+        }
+        for key, (name, fn) in wrong.items():
+            with mock.patch.object(tensor, name, fn):
+                out[key] = _sign_steps(smesh, inputs, 0.0, state=inputs["sign_state"])
+    return out
+
+
+def sign_unsharded_losses(inputs, dropout, steps):
+    """The port's SIGN on one process: ``SIGN.forward``, the NLL mean, Adam,
+    each step with the dropout seed 2."""
+    import torch.nn.functional as F
+
+    model = sign_model(dropout)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    feats = [torch.from_numpy(f) for f in inputs["sign_feats"]]
+    labels = torch.from_numpy(inputs["sign_labels"])
+    gen, losses = torch.Generator(), []
+    for _ in range(steps):
+        gen.manual_seed(2)
+        model.train()
+        loss = F.nll_loss(F.log_softmax(model(feats, gen)[0], -1), labels)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    return losses
