@@ -181,10 +181,19 @@ it imports nothing of JAX. Phases, each of which must pass:
     SpMMs at F = 256, ring NCE at 8,192 x 256, the two-level step (the flat
     step's bits) and the MAG step with sharded tables, each rank's K1
     launches checked against ``PARALLEL_LAUNCHES`` and its section times
-    printed with the card's name and power limit; K1 on rank 0's local and
-    halo CSRs (of D = 4, and of the GCN-KD section's D = 2 at its F = 256
-    and 40) against its plain version and one cuSPARSE call (``K1 parallel
-    ...`` records).
+    printed with the card's name and power limit; every distillation mode
+    of the row-sharded trainer (``parallel.modes``: ``fitnet``, ``at``,
+    ``gpw``, ``lpw``, ``nce``, ``gcd``, ``nce-labels``, ``nce-edges``,
+    ``nce-labels-edges`` and ``nce --kd_and_aux``; 2 x 256 GCN, teacher
+    features 750 wide, ``proj_dim`` 256, ``max_samples`` 8,192) on another
+    gloo world of 4 on cuda:0, 2 steps each, every loss against the card's
+    single device (rtol 1e-5), each rank's K1 launches checked against
+    ``PARALLEL_MODE_LAUNCHES``, its ms and bytes a step printed; K1 on rank
+    0's local and halo CSRs (of D = 4, and of the GCN-KD section's D = 2 at
+    its F = 256 and 40) against its plain version and one cuSPARSE call,
+    and at ``lpw``'s shapes on the train subgraph (its softmax sums at F = 1,
+    its edge gathers' backward at F = 256) against its plain version and
+    ``torch.segment_reduce`` / ``index_add_`` (``K1 parallel ...`` records).
 
 ``--only a,b`` runs the named phases alone (see ``main``). The last lines
 are the kernels' JSON record, the ``nvidia-smi`` line and
@@ -3143,6 +3152,15 @@ PARALLEL_F = 256
 PARALLEL_LAUNCHES = {"gcn_kd_step": 2 * (2 + 3), "gcn_kd_eval": 2 * 2, "sign_step": 0,
                      "halo_step": 5, "halo_exchange": 0, "spmm_sharded": 2, "spmm_halo": 5,
                      "ring_nce": 0, "halo2_step": 5, "mag_epoch": 2 * 3 * 2}
+# K1 launches a rank makes in each case of parallel/modes.py (every
+# distillation mode on row shards), from the code: (a train step, the
+# evaluation). A step's two GCN layers one halo SpMM each, forward (2) and
+# backward (3); gcd's two ProjectionGCD heads one each more; lpw's term
+# (lsp_term) the student's and the teacher's softmax sums forward,
+# and backward the student's sums' gather and its two edge gathers; the
+# evaluation the two layers forward. The other terms launch nothing
+PARALLEL_MODE_LAUNCHES = {"step": (2 * (2 + 3), 2 * 2), "gcd": (2 * (2 + 3) + 2 * (2 + 3), 2 * 2),
+                          "lpw": (2 * (2 + 3) + 2 + 3, 2 * 2)}
 
 
 def _parallel_one_rank(device, graph):
@@ -3192,6 +3210,76 @@ def _parallel_one_rank(device, graph):
     return out
 
 
+def _parallel_modes(inputs, smi, failures):
+    """Every distillation mode of the row-sharded trainer
+    (``parallel.modes.run_modes``) on the gloo world of 4 on cuda:0 at arxiv
+    shape and full width: ``parallel.modes.STEPS`` steps of each case, its
+    losses against the card's single device (rtol 1e-5), the replicated
+    parameters the same bits on every rank, every rank's K1 launches against
+    ``PARALLEL_MODE_LAUNCHES``; prints ms and bytes a step; then K1 at
+    ``lpw``'s shapes on the train subgraph (``K1 parallel lpw ...``
+    records). Returns (the K1 launches of the path, records)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.parallel.modes import STEPS, run_modes
+
+    t0 = time.time()
+    out = run_modes(inputs, PARALLEL_WORLD, backend="gloo", device="cuda")
+    failures += [f"parallel modes: {f}" for f in out["failures"]]
+    k1 = 0
+    lsp = out["lsp_graph"]
+    print(f"parallel modes: gloo x{PARALLEL_WORLD} on cuda:0, (2, 2) mesh, GCN 2 x 256, "
+          f"teacher features 750 wide, proj_dim 256, max_samples 8192, train subgraph "
+          f"{out['n_train']} nodes {lsp.n_edge} edges [{smi}]", flush=True)
+    for name, want in out["single"].items():
+        step, evaluation = PARALLEL_MODE_LAUNCHES.get(name, PARALLEL_MODE_LAUNCHES["step"])
+        for r in out["ranks"]:
+            c = r[name]
+            if (c["k1_step"], c["k1_eval"]) != (step, evaluation):
+                failures.append(f"parallel mode {name} rank K1 launches "
+                                f"{c['k1_step']} a step, {c['k1_eval']} an evaluation")
+            k1 += c["k1_step"] * STEPS + c["k1_eval"]
+        c = out["ranks"][0][name]
+        ms = " / ".join(f"{r[name]['ms'][-1]:.1f}" for r in out["ranks"])
+        print(f"parallel mode {name}: losses {c['losses']} single device {want} (rtol 1e-5); "
+              f"ms a step rank 0 {' / '.join(f'{v:.1f}' for v in c['ms'])}, last step ranks "
+              f"{ms}; bytes sent a step a rank "
+              f"{' / '.join(str(r[name]['bytes_step']) for r in out['ranks'])}; K1 a step "
+              f"{c['k1_step']}, an evaluation {c['k1_eval']} [{smi}]", flush=True)
+    print(f"parallel modes: {len(out['single'])} cases, world and single device "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    # lpw's K1 shapes: the softmax sums (and their gather's backward) at F = 1
+    # over the train subgraph's CSR, the edge gathers' backward at the GCN's
+    # width over its transpose (senders) and its CSR (receivers)
+    g = lsp.to(DEVICE)
+    e, e_pad = g.n_edge, g.num_edges_padded
+    ident = torch.arange(e_pad, dtype=torch.int32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    z = torch.rand(e_pad, 1, generator=gen, device=DEVICE)
+    msg = torch.randn(e_pad, PARALLEL_F, generator=gen, device=DEVICE)
+    ro64 = g.row_offsets.long()
+
+    def index_add(ids, m):
+        return torch.zeros(g.num_nodes, m.shape[1], device=DEVICE).index_add_(
+            0, ids[:e].long(), m[:e])
+
+    records = []
+    for name, inp, src, ro, split, library in (
+            ("sums F=1", z, ident, g.row_offsets, g.row_split,
+             lambda: torch.segment_reduce(z[:e], "sum", offsets=ro64, axis=0)),
+            (f"senders gather bwd F={PARALLEL_F}", msg, g.csc_perm, g.t_row_offsets,
+             g.t_row_split, lambda: index_add(g.senders, msg)),
+            (f"receivers gather bwd F={PARALLEL_F}", msg, ident, g.row_offsets, g.row_split,
+             lambda: index_add(g.receivers, msg))):
+        rec, fails = _mol_k1_case(f"K1 parallel lpw {name}", inp, src, ro, split, library,
+                                  extra={"graph": "train subgraph"})
+        rec["launch_key"] = "K1 parallel"
+        records.append(rec)
+        failures += fails
+    return k1, records
+
+
 def phase_parallel(smi):
     """The multi-device layer (``efficient_gnns_tpu_torch/parallel``) on the
     one card: the padded arxiv graph's partitions at D = 4 (``halo_stats``);
@@ -3202,7 +3290,9 @@ def phase_parallel(smi):
     step against the single-device losses on the card, rtol 1e-5; the
     two-level step the flat step's bits; ring NCE at 8,192 x 256; the MAG
     step with sharded tables), every rank's K1 launches checked against
-    ``PARALLEL_LAUNCHES``, its exchange bytes a step printed; and K1 timed on
+    ``PARALLEL_LAUNCHES``, its exchange bytes a step printed; every
+    distillation mode of the row-sharded trainer on a gloo world of 4 too
+    (:func:`_parallel_modes`); and K1 timed on
     rank 0's local and halo CSRs of D = 4 at F = 256 and of the GCN-KD
     section's D = 2 at F = 256 and 40 (``K1 parallel ...`` records). Returns
     (records, K1 launches of the path, failures)."""
@@ -3268,6 +3358,8 @@ def phase_parallel(smi):
           f"SIGN dp x tp step (2, 2) losses {r0['sign_losses']} single device "
           f"{r0['single_sign_losses']} (rtol 1e-5); replicated parameters the same bits on "
           f"every rank", flush=True)
+    more, lpw_records = _parallel_modes(inputs, smi, failures)
+    k1 += more
 
     records = []
     gen = torch.Generator(device=DEVICE).manual_seed(6)
@@ -3287,7 +3379,7 @@ def phase_parallel(smi):
                 records.append(rec)
                 failures += fails
     print(f"parallel phase: {time.time() - t_phase:.1f} s", flush=True)
-    return records, k1, failures
+    return records + lpw_records, k1, failures
 
 
 PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
-from efficient_gnns_tpu_torch.ops.segment import segment_softmax
+from efficient_gnns_tpu_torch.ops.sorted_segment import csr_segment_softmax, gather_rows_csr
 
 _F32_MIN = torch.finfo(torch.float32).min
 
@@ -211,11 +211,14 @@ def gsp_criterion(logits, labels, feat, teacher_feat, kernel="cosine", beta=1.0,
 # LSP ("lpw"): Local Structure Preserving
 
 
-def _edge_similarity(graph: Graph, feat: torch.Tensor, kernel: str) -> torch.Tensor:
-    # padding edges point one past the last node: clamped here, masked later
-    last = graph.num_nodes - 1
-    s = feat[graph.senders.long().clamp_max(last)].float()
-    d = feat[graph.receivers.long().clamp_max(last)].float()
+def _edge_similarity(graph: Graph, feat: torch.Tensor, kernel: str,
+                     ident: torch.Tensor) -> torch.Tensor:
+    # padding edges point one past the last node: clamped here, masked later;
+    # each gather's gradient is K1 over the CSR of its index
+    s = gather_rows_csr(feat, graph.senders, graph.t_row_offsets, graph.csc_perm,
+                        graph.t_row_split).float()
+    d = gather_rows_csr(feat, graph.receivers, graph.row_offsets, ident,
+                        graph.row_split).float()
     if kernel in ("cosine", "poly"):
         sim = (_normalize(s) * _normalize(d)).sum(-1)
         return sim * sim if kernel == "poly" else sim
@@ -230,13 +233,18 @@ def lsp_term(graph: Graph, feat, teacher_feat, kernel: str = "cosine",
              mode: str = "kld", keep_mask=None):
     """Per-edge similarity distributions (segment softmax over the in-edges
     of each receiver), KL(teacher || student) or MSE, mean over the real
-    (and kept) edges. ``keep_mask`` restricts the edges without relabeling."""
+    (and kept) edges. ``keep_mask`` restricts the edges without relabeling.
+    Every sum of the term and of its gradient runs on K1 in the graph's CSR
+    order (``ops/sorted_segment.py``), with no float atomics: every call
+    gives the same bits (the row-sharded trainer computes the term on every
+    rank)."""
     mask = graph.edge_mask
     if keep_mask is not None:
         mask = mask & keep_mask
+    ident = torch.arange(graph.num_edges_padded, dtype=torch.int32, device=graph.device)
     p_s, p_t = (
-        segment_softmax(_edge_similarity(graph, f, kernel), graph.receivers,
-                        graph.num_nodes, mask)
+        csr_segment_softmax(_edge_similarity(graph, f, kernel, ident), graph.receivers,
+                            graph.row_offsets, graph.row_split, ident, mask)
         for f in (feat, teacher_feat)
     )
     if mode == "mse":
@@ -293,11 +301,15 @@ def nce_term_structured(feat, teacher_feat, nce_T: float = 0.075, *,
                         generator: Optional[torch.Generator] = None,
                         max_samples: int = 8192, mask=None,
                         labels: Optional[torch.Tensor] = None,
-                        graph: Optional[Graph] = None, idx=None, sel_mask=None):
+                        graph: Optional[Graph] = None, idx=None, sel_mask=None,
+                        gathered: bool = False):
     """Label- and/or edge-conditioned InfoNCE (multi-positive G-CRD): beside
     the diagonal student-i / teacher-i pair, columns sharing node i's label
     (``labels``) and/or i's graph neighbors (``graph``) count as positives;
-    the loss is the mean over positives of ``-log p``."""
+    the loss is the mean over positives of ``-log p``. With ``gathered``
+    ``feat`` and ``teacher_feat`` are already the rows ``idx`` (``[m, d]``),
+    while ``labels`` and ``graph`` still span all the rows that ``idx``
+    indexes (the row-sharded trainer assembles only the chosen rows)."""
     n = feat.shape[0]
     _require_sampler(n, max_samples, generator, idx)
     if idx is None and generator is not None:
@@ -307,7 +319,9 @@ def nce_term_structured(feat, teacher_feat, nce_T: float = 0.075, *,
     m = idx.shape[0]
     if sel_mask is None:
         sel_mask = torch.ones(m, dtype=torch.bool, device=feat.device)
-    logp = _nce_log_probs(feat[idx], teacher_feat[idx], nce_T, sel_mask)
+    if not gathered:
+        feat, teacher_feat = feat[idx], teacher_feat[idx]
+    logp = _nce_log_probs(feat, teacher_feat, nce_T, sel_mask)
 
     pos = torch.eye(m, dtype=torch.bool, device=feat.device)
     if labels is not None:

@@ -81,6 +81,16 @@ def segment_softmax(
     out-of-range ids or ``mask == False`` get probability 0 and no gradient;
     the segment maximum is a constant shift (no gradient), so the backward is
     the softmax VJP ``p * (g - sum_seg(p * g))`` of the JAX custom VJP."""
+    return segment_softmax_by(
+        logits, segment_ids, num_segments, mask,
+        lambda z: segment_sum(z, segment_ids, num_segments),
+        lambda denom: gather(denom, segment_ids))
+
+
+def segment_softmax_by(logits, segment_ids, num_segments, mask, seg_sum, seg_gather):
+    """:func:`segment_softmax` with its two reductions given: ``seg_sum(z)``
+    sums ``z`` over each segment and ``seg_gather(denom)`` reads each
+    entry's segment sum back (``ops/sorted_segment.py`` runs both on K1)."""
     lowest = torch.finfo(logits.dtype).min
     valid = segment_ids.long() < num_segments
     valid = valid.reshape(valid.shape + (1,) * (logits.dim() - 1))
@@ -93,6 +103,5 @@ def segment_softmax(
         ).clamp_min(lowest)  # empty segments
     shifted = torch.where(valid, logits - gather(seg_max, segment_ids), 0.0)
     z = torch.where(valid, torch.exp(shifted), 0.0)
-    denom = segment_sum(z, segment_ids, num_segments).clamp_min(
-        torch.finfo(logits.dtype).tiny)
-    return z / gather(denom, segment_ids)
+    denom = seg_sum(z).clamp_min(torch.finfo(logits.dtype).tiny)
+    return z / seg_gather(denom)

@@ -13,7 +13,9 @@ backward of ``index_select``) on a trainable tensor:
 * :func:`csr_segment_sum_sorted`: forward K1 (``src = ident``), backward a
   row gather of the cotangent by the sorted ids;
 * :func:`gather_rows_csr`: forward ``index_select``, backward K1 over the
-  transpose CSR.
+  transpose CSR;
+* :func:`csr_segment_softmax`: ``segment_softmax`` whose sum and its gather
+  back to the entries are the two above.
 
 Values equal the JAX ``segment_sum`` (sorted ids, out-of-range ids dropped)
 and ``gather`` (clipped indices). On CPU tensors K1 is its plain version.
@@ -28,6 +30,7 @@ import torch.nn.functional as F
 
 from efficient_gnns_tpu_torch.graphs.row_split import RowSplit
 from efficient_gnns_tpu_torch.ops.cuda.segment_sum import csr_segment_sum
+from efficient_gnns_tpu_torch.ops.segment import segment_softmax_by
 
 
 class _SortedSegmentSum(torch.autograd.Function):
@@ -89,3 +92,20 @@ def gather_rows_csr(x: torch.Tensor, idx: torch.Tensor, t_row_offsets: torch.Ten
     ``graph_offsets``, the identity and ``graph_split``.
     """
     return _GatherRows.apply(x, idx, t_row_offsets, t_perm, t_split)
+
+
+def csr_segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
+                        row_offsets: torch.Tensor, split: Optional[RowSplit],
+                        ident: torch.Tensor, mask: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """``ops.segment.segment_softmax`` of ``[E_pad]`` ``logits`` in sorted
+    order (``segment_ids``, ``row_offsets``, ``split`` and ``ident`` as in
+    :func:`csr_segment_sum_sorted`) whose segment sums and their gather back
+    to the entries are :func:`csr_segment_sum_sorted` and
+    :func:`gather_rows_csr`: K1 forward and backward, no float atomics."""
+    return segment_softmax_by(
+        logits, segment_ids, row_offsets.numel() - 1, mask,
+        lambda z: csr_segment_sum_sorted(z[:, None], segment_ids, row_offsets, split,
+                                         ident)[:, 0],
+        lambda denom: gather_rows_csr(denom[:, None], segment_ids, row_offsets, ident,
+                                      split)[:, 0])

@@ -91,7 +91,8 @@ def build_inputs(n_devices: int, shape: str = "tiny") -> Dict:
     """Everything the ranks share, built once on the host: the graph padded
     to a multiple of the world, its partitions (flat ``n_devices``, and halo
     over the GCN-KD mesh's ``data`` axis), the features, labels, splits and
-    node mask, the step's initial ``w``."""
+    node mask, the step's initial ``w``; and the graph's raw edges (not
+    sent to the dryrun's ranks)."""
     from efficient_gnns_tpu_torch.data import synthetic_node_dataset
     from efficient_gnns_tpu_torch.parallel.partition import partition_graph, partition_graph_halo
 
@@ -110,7 +111,8 @@ def build_inputs(n_devices: int, shape: str = "tiny") -> Dict:
                 num_classes=cfg["num_classes"],
                 halo=partition_graph_halo(ds.graph, n_devices),
                 halo_dp=partition_graph_halo(ds.graph, dp_mesh_shape(n_devices)[1][0]),
-                allg=partition_graph(ds.graph, n_devices))
+                allg=partition_graph(ds.graph, n_devices),
+                edges=(ds.senders, ds.receivers))
 
 
 def teacher_logits(y: np.ndarray, num_classes: int) -> np.ndarray:
@@ -213,33 +215,35 @@ def single_device_loss(inputs: Dict, device) -> float:
 
 class _Clock:
     """Per-section host ms of each of ``reps`` runs (the ranks start each
-    together; synchronised on a card) and K1's launches in one run; the
-    first run's result. With ``exchange``, the last run's collectives are
-    timed inside it as well (:func:`_timed_collectives`): ``exchange_ms``
+    together; synchronised on a card), K1's launches in one run and the
+    bytes this rank's collectives send in one run (``sent``,
+    :func:`_collectives`); the first run's result. With ``exchange``, the
+    last run's collectives are timed inside it as well: ``exchange_ms``
     holds their sum, and the run's own ms counts the synchronisations."""
 
     def __init__(self, device, reps):
         from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
 
         self.device, self.reps, self.k1 = device, reps, csr_segment_sum
-        self.ms, self.launches, self.exchange_ms = {}, {}, {}
+        self.ms, self.launches, self.exchange_ms, self.sent = {}, {}, {}, {}
 
     def __call__(self, name, fn, reps=None, exchange=False):
         reps = self.reps if reps is None else reps
-        self.ms[name], before, results = [], self.k1.launches, []
+        self.ms[name], before, results, sent = [], self.k1.launches, [], 0
         for i in range(reps):
             _sync(self.device)
             dist.barrier()  # every rank starts the section together
             timed = exchange and i == reps - 1
-            with (_timed_collectives(self.device) if timed
-                  else contextlib.nullcontext()) as spent:
+            with _collectives(self.device, timed) as seen:
                 t0 = time.perf_counter()
                 results.append(fn())
                 _sync(self.device)
                 self.ms[name].append((time.perf_counter() - t0) * 1e3)
+            sent += seen["bytes"]
             if timed:
-                self.exchange_ms[name] = sum(spent)
+                self.exchange_ms[name] = sum(seen["ms"])
         self.launches[name] = (self.k1.launches - before) // reps
+        self.sent[name] = sent // reps
         return results[0]
 
 
@@ -248,35 +252,54 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _payload(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _all_to_all_sent(out, inp, out_splits=None, in_splits=None, group=None, **_) -> int:
+    rows, me = inp.shape[0], dist.get_rank(group)
+    own = rows // dist.get_world_size(group) if in_splits is None else in_splits[me]
+    return _payload(inp) * (rows - own) // max(rows, 1)
+
+
 @contextlib.contextmanager
-def _timed_collectives(device):
-    """Within: each blocking all-gather, reduce-scatter and all-reduce of
-    ``parallel.collectives`` timed on the host, the device synchronised
-    before and after it (so the device work it waits on is not counted);
-    yields the list of their ms."""
+def _collectives(device, timed=False):
+    """Within: every all-gather, reduce-scatter, all-reduce and all-to-all
+    of the ranks (the entry points of ``parallel.collectives`` and of
+    ``torch.distributed`` that they call) counted in ``"bytes"``, what this
+    rank sends: an all-reduce's buffer, an all-gather's block, a
+    reduce-scatter's or an all-to-all's input less the rank's own block.
+    With ``timed`` each one's host ms is appended to ``"ms"``, the device
+    synchronised before and after it (so the device work it waits on is
+    not counted). Yields that dict."""
     from efficient_gnns_tpu_torch.parallel import collectives
 
-    spent = []
+    seen = {"bytes": 0, "ms": []}
 
-    def timed(fn):
+    def counted(fn, sent):
         def call(*args, **kwargs):
+            seen["bytes"] += sent(*args, **kwargs)
+            if not timed:
+                return fn(*args, **kwargs)
             _sync(device)
             t0 = time.perf_counter()
             result = fn(*args, **kwargs)
             _sync(device)
-            spent.append((time.perf_counter() - t0) * 1e3)
+            seen["ms"].append((time.perf_counter() - t0) * 1e3)
             return result
         return call
 
-    names = ((collectives, "_all_gather"), (collectives, "_reduce_scatter"),
-             (collectives.dist, "all_reduce"))
-    saved = [getattr(m, n) for m, n in names]
-    for (m, n), fn in zip(names, saved):
-        setattr(m, n, timed(fn))
+    names = ((collectives, "_all_gather", lambda out, x, **_: _payload(x)),
+             (collectives, "_reduce_scatter", lambda out, x, **_: _payload(x) - _payload(out)),
+             (dist, "all_reduce", lambda t, *_, **__: _payload(t)),
+             (dist, "all_to_all_single", _all_to_all_sent))
+    saved = [getattr(m, n) for m, n, _ in names]
+    for (m, n, sent), fn in zip(names, saved):
+        setattr(m, n, counted(fn, sent))
     try:
-        yield spent
+        yield seen
     finally:
-        for (m, n), fn in zip(names, saved):
+        for (m, n, _), fn in zip(names, saved):
             setattr(m, n, fn)
 
 
@@ -462,7 +485,7 @@ def run_dryrun(inputs: Dict, n_devices: int, *, backend: str = "nccl",
     from efficient_gnns_tpu_torch.parallel.partition import halo_stats
 
     host.available()  # build the native walker here, not in every rank at once
-    shared = {k: v for k, v in inputs.items() if k != "graph"}  # the ranks' share
+    shared = {k: v for k, v in inputs.items() if k not in ("graph", "edges")}  # the ranks' share
     ranks = run_world(dryrun_rank, n_devices, backend=backend, device=device,
                       args=(shared,))
     r0 = dict(ranks[0], ranks=ranks, halo_stats=halo_stats(inputs["halo"]))

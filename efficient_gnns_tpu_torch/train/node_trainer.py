@@ -51,6 +51,8 @@ class NodeDistillTrainer:
     root, decoupled weight decay. Dropout and row subsampling draw from a
     ``torch.Generator`` on ``device``, seeded from ``(seed, epoch)`` at every
     epoch, so a run restored from a checkpoint continues as it would have.
+    ``bn_group`` is the heads' BatchNorm group (as in ``GCN``; the row-sharded
+    trainer's axis).
     """
 
     def __init__(
@@ -66,6 +68,7 @@ class NodeDistillTrainer:
         lsp_graph: Optional[Graph] = None,
         seed: int = 0,
         device="cuda",
+        bn_group=None,
     ):
         self.device = torch.device(device)
         self.cfg = config
@@ -91,11 +94,11 @@ class NodeDistillTrainer:
         self.sproj = self.tproj = None
         if config.needs_mlp_proj() or config.needs_gcd_proj():
             feat_dim = self.model.convs[-1].weight.shape[0]  # width of out_feat
-            kw = {}
+            kw = {"bn_group": bn_group}
             head = ProjectionMLP
             if config.needs_gcd_proj():
                 # composed with logit KD the head drops its parallel linear
-                head, kw = ProjectionGCD, {"use_linear": not config.kd_and_aux}
+                head, kw["use_linear"] = ProjectionGCD, not config.kd_and_aux
             self.sproj = head(feat_dim, config.proj_dim, seed=_derived_seed(seed, 0, 1),
                               device=self.device, **kw)
             self.tproj = head(self.teacher_feat.shape[1], config.proj_dim,

@@ -20,6 +20,8 @@ from efficient_gnns_tpu.distill import criteria as jc
 from efficient_gnns_tpu.graphs import build_graph as jax_build_graph
 from efficient_gnns_tpu_torch.distill import criteria as tc
 from efficient_gnns_tpu_torch.graphs import build_graph
+from efficient_gnns_tpu_torch.ops.segment import segment_softmax
+from efficient_gnns_tpu_torch.ops.sorted_segment import csr_segment_softmax
 
 N, C, D, DT = 60, 7, 12, 20
 KERNELS = ["cosine", "poly", "l2", "rbf"]
@@ -163,6 +165,26 @@ def test_lsp_term_matches_jax(rng, data, kernel, mode, keep):
     _close(got, want)
 
 
+@pytest.mark.parametrize("keep", [False, True])
+def test_csr_segment_softmax_is_segment_softmax(rng, keep):
+    """``lsp_term``'s softmax, its sums on K1 in CSR order (the plain
+    version here), gives ``segment_softmax``'s bits and its gradient."""
+    _, tg = _graph_pair(rng)
+    mask = tg.edge_mask
+    if keep:
+        mask = mask & _t(rng.random(tg.num_edges_padded) < 0.6)
+    logits = rng.normal(size=tg.num_edges_padded).astype(np.float32) * 3
+    cot = _t(rng.normal(size=tg.num_edges_padded).astype(np.float32))
+    ident = torch.arange(tg.num_edges_padded, dtype=torch.int32)
+    got, want = (torch.tensor(logits, requires_grad=True) for _ in range(2))
+    p = csr_segment_softmax(got, tg.receivers, tg.row_offsets, tg.row_split, ident, mask)
+    q = segment_softmax(want, tg.receivers, tg.num_nodes, mask)
+    (p * cot).sum().backward()
+    (q * cot).sum().backward()
+    assert torch.equal(p, q) and bool(p[~mask].eq(0).all())
+    _close(got.grad, want.grad, rtol=1e-6, atol=1e-7)
+
+
 @pytest.mark.parametrize("name", ["gsp_criterion", "nce_criterion", "lsp_criterion"])
 def test_sampled_criteria_match_jax(rng, data, name):
     args = [data[k] for k in ("logits", "labels", "feat", "teacher_feat")]
@@ -183,6 +205,7 @@ GRAD_TERMS = {
     "gsp-rbf": lambda m, f, t, g: m.gsp_term(f, t, "rbf"),
     "lsp-cosine": lambda m, f, t, g: m.lsp_term(g, f, t, "cosine"),
     "lsp-l2-mse": lambda m, f, t, g: m.lsp_term(g, f, t, "l2", "mse"),
+    "lsp-poly": lambda m, f, t, g: m.lsp_term(g, f, t, "poly"),
     "nce": lambda m, f, t, g: m.nce_term(f, t, 0.1),
     "nce-edges": lambda m, f, t, g: m.nce_term_structured(f, t, 0.1, graph=g),
 }

@@ -296,3 +296,131 @@ def sign_unsharded_losses(inputs, dropout, steps):
         opt.step()
         losses.append(float(loss.detach()))
     return losses
+
+
+# --------------------------------------------------------------------------
+# every distillation mode on row shards (tests/test_torch_parallel_modes.py)
+# --------------------------------------------------------------------------
+
+AUX_MODES = ("fitnet", "at", "gpw", "lpw", "nce", "gcd", "nce-labels", "nce-edges",
+             "nce-labels-edges")
+MODE_CASES = [(mode, kd) for mode in AUX_MODES for kd in (False, True)]
+TEACHER_DIM = 24
+DRAW_SAMPLES = 256  # below the 552 train rows: a real draw
+EMPTY_RANK_BELOW = DP_DATA["num_nodes"] // 2
+
+
+def modes_config(mode, kd_and_aux, dropout, max_samples):
+    from efficient_gnns_tpu_torch.train.config import DistillConfig
+
+    return DistillConfig(training=mode, kd_and_aux=kd_and_aux, hidden=16, num_layers=2,
+                         dropout=dropout, proj_dim=16, max_samples=max_samples)
+
+
+def modes_inputs(unsorted, train_below=None):
+    """The dp data set, the teacher's features (from seed 3) and logits, the
+    split (its train indices permuted with seed 4 when ``unsorted``, and
+    only those below ``train_below`` kept when given) and the train
+    subgraph in that train order."""
+    import numpy as np
+
+    from efficient_gnns_tpu_torch.data import synthetic_node_dataset
+    from efficient_gnns_tpu_torch.graphs import induced_subgraph
+    from efficient_gnns_tpu_torch.parallel.dryrun import teacher_logits
+
+    ds = synthetic_node_dataset(**DP_DATA)
+    split = dict(ds.split_idx)
+    if unsorted:
+        split["train"] = np.random.default_rng(4).permutation(split["train"])
+    if train_below is not None:
+        split["train"] = split["train"][split["train"] < train_below]
+    tf = np.random.default_rng(3).normal(size=(DP_DATA["num_nodes"], TEACHER_DIM))
+    return dict(ds=ds, split=split, teacher_feat=tf.astype(np.float32),
+                teacher_logits=teacher_logits(ds.y, DP_DATA["num_classes"]),
+                lsp_graph=induced_subgraph(ds.senders, ds.receivers, split["train"]))
+
+
+def _modes_trainer(mesh, part, data, cfg, state=None, cls=None):
+    from efficient_gnns_tpu_torch.parallel.sharded_trainer import ShardedNodeDistillTrainer
+
+    ds = data["ds"]
+    tr = (cls or ShardedNodeDistillTrainer)(
+        mesh, cfg, part, ds.x, ds.y, data["split"], DP_DATA["num_classes"],
+        node_mask=ds.graph.node_mask.numpy().copy(), teacher_feat=data["teacher_feat"],
+        teacher_logits=data["teacher_logits"], lsp_graph=data["lsp_graph"], seed=0)
+    if state is not None:
+        for name, module in tr._named_modules().items():
+            module.load_state_dict({k: torch.from_numpy(v) for k, v in state[name].items()})
+    return tr
+
+
+def _modes_step(tr):
+    """One step: its (loss, loss_cls, loss_aux), every module's gradients
+    and state after it, by ``<module>.<name>``."""
+    losses = tr.train_epoch(0)
+    named = tr._named_modules().items()
+    return dict(losses=[losses[k] for k in ("loss", "loss_cls", "loss_aux")],
+                grads=_np((f"{m}.{n}", p.grad) for m, mod in named
+                          for n, p in mod.named_parameters()),
+                state=_np((f"{m}.{n}", v) for m, mod in named
+                          for n, v in mod.state_dict().items()))
+
+
+def _assemble_rows_summed_backward(rows, slots, m, group):
+    """The chosen rows' assembly with the wrong backward: a sum of the
+    ranks' cotangents, which are all the whole one."""
+    keep = slots >= 0
+    buf = rows.new_zeros((m,) + tuple(rows.shape[1:]))
+    return all_reduce_stat(buf.index_add(0, slots[keep], rows[keep]), group)
+
+
+def modes_world(device, inputs):
+    """Every case of ``MODE_CASES`` on ``inputs["mesh"]`` (``(axes,
+    shape)``): one step from the JAX weights (``inputs["jax_init"]``) with
+    dropout 0 and every train row (no draw); two steps from the seed with
+    dropout 0.5, a draw of ``DRAW_SAMPLES`` rows and an unsorted train
+    split, and the same with the train rows of the first half of the graph
+    only; with ``inputs["wrong"]`` each wrong collective, one step from the
+    JAX weights; with ``inputs["modes"]`` (``parallel.modes.rank_inputs``)
+    ``parallel.modes.modes_rank`` on them."""
+    from efficient_gnns_tpu_torch.parallel import sharded_trainer
+    from efficient_gnns_tpu_torch.parallel.collectives import all_reduce_replicated
+
+    mesh = make_mesh(dist.get_world_size(), *inputs["mesh"], device=device)
+    sorted_data, unsorted_data = modes_inputs(False), modes_inputs(True)
+    # the train rows of the first half only: the second rank of data has none
+    half_data = modes_inputs(True, EMPTY_RANK_BELOW)
+    part = partition_graph_halo(sorted_data["ds"].graph, mesh.size("data"))
+    out = {}
+    for mode, kd in MODE_CASES:
+        init = inputs["jax_init"][mode, kd]
+        tr = _modes_trainer(mesh, part, sorted_data, modes_config(mode, kd, 0.0, 4096), init)
+        out["jax", mode, kd] = _modes_step(tr)
+        for key, data in (("draw", unsorted_data), ("empty_rank", half_data)):
+            tr = _modes_trainer(mesh, part, data, modes_config(mode, kd, 0.5, DRAW_SAMPLES))
+            out[key, mode, kd] = [list(tr.train_epoch(e).values()) for e in range(2)]
+    if inputs.get("modes") is not None:
+        from efficient_gnns_tpu_torch.parallel.modes import modes_rank
+
+        out["modes"] = modes_rank(device, inputs["modes"])
+    if not inputs.get("wrong"):
+        return out
+
+    class SummedAgain(sharded_trainer.ShardedNodeDistillTrainer):
+        def _aux_term(self, feat, labels, tr):
+            return all_reduce_replicated(super()._aux_term(feat, labels, tr), self.group)
+
+    def step(mode, cls=None):
+        cfg = modes_config(mode, False, 0.0, 4096)
+        return _modes_trainer(mesh, part, sorted_data, cfg, inputs["jax_init"][mode, False],
+                              cls)
+
+    out["wrong", "summed_again"] = _modes_step(step("nce", SummedAgain))
+    with mock.patch.object(sharded_trainer, "assemble_rows", _assemble_rows_summed_backward):
+        out["wrong", "gather_sum_backward"] = _modes_step(step("nce"))
+    with mock.patch.object(sharded_trainer, "all_reduce_stat", lambda x, group: x):
+        out["wrong", "at_local_norm"] = _modes_step(step("at"))
+    tr = step("gcd")
+    tr.sproj.bn.group = tr.tproj.bn.group = None
+    out["wrong", "gcd_local_bn"] = _modes_step(tr)
+    return out
