@@ -2356,17 +2356,24 @@ def phase_mag_profile(ds):
     """The teacher (3 x 512, ``supervised``) and the student (2 x 32, ``kd``
     with a random 3 x 512 teacher online) at the full shape, in memory,
     through ``MagTrainer``: a warm epoch, then one steady epoch (host clock,
-    before any profile) with the prefetch thread's host seconds a sample
-    (``sample()`` and the upload), one layer-wise evaluation, one profiled
+    before any profile, the recorder on) with the prefetch thread's host ms a
+    sample (its ``sampler.sample`` and ``sampler.upload`` spans, ``sample()``
+    and the upload), one layer-wise evaluation, one profiled
     epoch (device busy and idle share, top device ops), the device-only step
     (``device_step_ms``, as ``--time_steps``) and the peak device memory.
     Returns the K1 launches of the steady epochs (checked against
     ``_mag_launches``) and the failures."""
     import torch
 
+    from efficient_gnns_tpu_torch import tracing
     from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
     from efficient_gnns_tpu_torch.train import DistillConfig, MagTrainer
     from efficient_gnns_tpu_torch.train.mag_trainer import upload_bytes
+
+    def span_ms(name):
+        """Mean ms of the recorder's ``name`` spans."""
+        ns = [r.t1_ns - r.t0_ns for r in tracing.records() if r.name == name]
+        return sum(ns) / 1e6 / max(len(ns), 1)
 
     failures, k1 = [], 0
     for tag, cfg, teacher_layers in (
@@ -2380,12 +2387,14 @@ def phase_mag_profile(ds):
         try:
             tr.train_epoch(1)  # warm-up
             csr_segment_sum.launches = 0
-            p = tr.prefetcher
-            s0, u0, n0 = p.sample_s, p.upload_s, p.samples
-            ms = _steady_ms(lambda: tr.train_epoch(2), 1)
+            tracing.reset()
+            tracing.enable()
+            try:
+                ms = _steady_ms(lambda: tr.train_epoch(2), 1)
+            finally:
+                tracing.enable(False)
             launches = csr_segment_sum.launches
-            sample_ms = (p.sample_s - s0) * 1e3 / max(p.samples - n0, 1)
-            upload_ms = (p.upload_s - u0) * 1e3 / max(p.samples - n0, 1)
+            sample_ms, upload_ms = span_ms("sampler.sample"), span_ms("sampler.upload")
             eval_ms = _steady_ms(tr.evaluate, 1)
             k1 += launches
             want = _mag_launches(cfg.num_layers, teacher_layers, epochs=1, chunks=0)

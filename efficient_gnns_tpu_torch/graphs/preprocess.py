@@ -25,6 +25,7 @@ import torch
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.graphs.hub_dense import auto_hub_size, build_hub_partition
 from efficient_gnns_tpu_torch.graphs.row_split import build_row_split, record_pair
+from efficient_gnns_tpu_torch.tracing import span
 
 
 def pad_length(n: int, multiple: int = 128) -> int:
@@ -123,102 +124,115 @@ def build_graph(
       max_dst: every receiver lies below it (raises otherwise); the graph
         then carries ``dst_row_split``, the row split of
         ``row_offsets[:max_dst + 1]`` (the tall typed R-GCN layout).
+
+    Spans (``tracing.py``): ``graph.build`` around the whole, and inside it
+    ``graph.sort`` (bidirection, self loops, both edge orders),
+    ``graph.hub_partition`` and ``graph.row_split``.
     """
-    senders = np.asarray(senders, dtype=np.int64)
-    receivers = np.asarray(receivers, dtype=np.int64)
-    if bidirected:
-        if edge_weight is not None or edge_type is not None:
-            raise ValueError("bidirected=True incompatible with edge payloads")
-        senders, receivers = to_bidirected(senders, receivers)
-    if self_loops:
-        if edge_weight is not None or edge_type is not None:
-            raise ValueError("self_loops=True incompatible with edge payloads")
-        senders, receivers = add_self_loops(senders, receivers, num_nodes)
+    with span("graph.build"):
+        senders = np.asarray(senders, dtype=np.int64)
+        receivers = np.asarray(receivers, dtype=np.int64)
+        with span("graph.sort"):
+            if bidirected:
+                if edge_weight is not None or edge_type is not None:
+                    raise ValueError("bidirected=True incompatible with edge payloads")
+                senders, receivers = to_bidirected(senders, receivers)
+            if self_loops:
+                if edge_weight is not None or edge_type is not None:
+                    raise ValueError("self_loops=True incompatible with edge payloads")
+                senders, receivers = add_self_loops(senders, receivers, num_nodes)
 
-    n_pad = int(pad_nodes_to) if pad_nodes_to is not None else int(num_nodes)
-    if n_pad < num_nodes:
-        raise ValueError(f"pad_nodes_to={n_pad} < num_nodes={num_nodes}")
-    e = senders.shape[0]
-    e_pad = (
-        int(pad_edges_to) if pad_edges_to is not None else pad_length(e, edge_pad_multiple)
-    )
-    if e_pad < e:
-        raise ValueError(f"pad_edges_to={e_pad} < num_edges={e}")
-    if e_pad >= 2**31 or n_pad >= 2**31:
-        raise ValueError(f"int32 indices cannot address {e_pad} edges / {n_pad} nodes")
+            n_pad = int(pad_nodes_to) if pad_nodes_to is not None else int(num_nodes)
+            if n_pad < num_nodes:
+                raise ValueError(f"pad_nodes_to={n_pad} < num_nodes={num_nodes}")
+            e = senders.shape[0]
+            e_pad = (
+                int(pad_edges_to) if pad_edges_to is not None
+                else pad_length(e, edge_pad_multiple)
+            )
+            if e_pad < e:
+                raise ValueError(f"pad_edges_to={e_pad} < num_edges={e}")
+            if e_pad >= 2**31 or n_pad >= 2**31:
+                raise ValueError(f"int32 indices cannot address {e_pad} edges / {n_pad} nodes")
 
-    csr_order = _lexsort_edges(senders, receivers)
-    s_csr = senders[csr_order]
-    r_csr = receivers[csr_order]
-    csc_perm = _lexsort_edges(r_csr, s_csr)
-    t_s = r_csr[csc_perm]
-    t_r = s_csr[csc_perm]
+            csr_order = _lexsort_edges(senders, receivers)
+            s_csr = senders[csr_order]
+            r_csr = receivers[csr_order]
+            csc_perm = _lexsort_edges(r_csr, s_csr)
+            t_s = r_csr[csc_perm]
+            t_r = s_csr[csc_perm]
 
-    def _pad_idx(a: np.ndarray) -> torch.Tensor:
-        out = np.full(e_pad, n_pad, dtype=np.int32)
-        out[:e] = a
-        return torch.from_numpy(out)
+        def _pad_idx(a: np.ndarray) -> torch.Tensor:
+            out = np.full(e_pad, n_pad, dtype=np.int32)
+            out[:e] = a
+            return torch.from_numpy(out)
 
-    pad_perm = np.arange(e_pad, dtype=np.int32)
-    pad_perm[:e] = csc_perm
+        pad_perm = np.arange(e_pad, dtype=np.int32)
+        pad_perm[:e] = csc_perm
 
-    ew = node_scale = None
-    if edge_weight is not None:
-        ew = np.zeros(e_pad, dtype=np.float32)
-        ew[:e] = np.asarray(edge_weight, dtype=np.float32)[csr_order]
-    if gcn_norm:
-        if ew is not None:
-            raise ValueError("gcn_norm=True incompatible with edge_weight")
-        deg = np.bincount(r_csr, minlength=n_pad).astype(np.float64)
-        inv_sqrt = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1.0)), 0.0)
-        if gcn_norm == "factored":
-            node_scale = inv_sqrt.astype(np.float32)
-        else:
+        ew = node_scale = None
+        if edge_weight is not None:
             ew = np.zeros(e_pad, dtype=np.float32)
-            ew[:e] = (inv_sqrt[s_csr] * inv_sqrt[r_csr]).astype(np.float32)
+            ew[:e] = np.asarray(edge_weight, dtype=np.float32)[csr_order]
+        if gcn_norm:
+            if ew is not None:
+                raise ValueError("gcn_norm=True incompatible with edge_weight")
+            deg = np.bincount(r_csr, minlength=n_pad).astype(np.float64)
+            inv_sqrt = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1.0)), 0.0)
+            if gcn_norm == "factored":
+                node_scale = inv_sqrt.astype(np.float32)
+            else:
+                ew = np.zeros(e_pad, dtype=np.float32)
+                ew[:e] = (inv_sqrt[s_csr] * inv_sqrt[r_csr]).astype(np.float32)
 
-    et = None
-    if edge_type is not None:
-        et = np.full(e_pad, num_edge_types, dtype=np.int32)
-        et[:e] = np.asarray(edge_type, dtype=np.int32)[csr_order]
-    if max_dst is not None and e and int(r_csr[-1]) >= max_dst:
-        raise ValueError(f"max_dst={max_dst} but a receiver is {int(r_csr[-1])}")
+        et = None
+        if edge_type is not None:
+            et = np.full(e_pad, num_edge_types, dtype=np.int32)
+            et[:e] = np.asarray(edge_type, dtype=np.int32)[csr_order]
+        if max_dst is not None and e and int(r_csr[-1]) >= max_dst:
+            raise ValueError(f"max_dst={max_dst} but a receiver is {int(r_csr[-1])}")
 
-    h = (auto_hub_size(n_pad, e, itemsize=2 if ew is None else 4,
-                       widths=(512, 256) if ew is None and node_scale is None else (256,))
-         if hub_dense == "auto" else int(hub_dense))
-    hub = build_hub_partition(s_csr, r_csr, num_nodes, h, h) if h > 0 else None
+        h = (auto_hub_size(n_pad, e, itemsize=2 if ew is None else 4,
+                           widths=(512, 256) if ew is None and node_scale is None else (256,))
+             if hub_dense == "auto" else int(hub_dense))
+        with span("graph.hub_partition"):
+            hub = build_hub_partition(s_csr, r_csr, num_nodes, h, h) if h > 0 else None
 
-    n_valid = num_nodes if n_node_valid is None else n_node_valid
-    row_offsets = _csr_offsets(r_csr, n_pad)
-    t_row_offsets = _csr_offsets(t_r, n_pad)
-    graph = Graph(
-        senders=_pad_idx(s_csr),
-        receivers=_pad_idx(r_csr),
-        t_senders=_pad_idx(t_s),
-        t_receivers=_pad_idx(t_r),
-        csc_perm=torch.from_numpy(pad_perm),
-        row_offsets=torch.from_numpy(row_offsets),
-        t_row_offsets=torch.from_numpy(t_row_offsets),
-        node_mask=torch.arange(n_pad) < n_valid,
-        num_nodes=n_pad,
-        n_edge=e,
-        edge_weight=None if ew is None else torch.from_numpy(ew),
-        t_edge_weight=None if ew is None else torch.from_numpy(ew[pad_perm]),
-        node_scale=None if node_scale is None else torch.from_numpy(node_scale),
-        row_split=build_row_split(row_offsets),
-        t_row_split=build_row_split(t_row_offsets),
-        hub=hub,
-        edge_type=None if et is None else torch.from_numpy(et),
-        num_edge_types=int(num_edge_types),
-        max_dst=None if max_dst is None else int(max_dst),
-        dst_row_split=None if max_dst is None else build_row_split(row_offsets[:max_dst + 1]),
-    )
-    record_pair(graph.row_split, graph.row_offsets)
-    record_pair(graph.t_row_split, graph.t_row_offsets)
-    if graph.dst_row_split is not None:
-        record_pair(graph.dst_row_split, graph.row_offsets)
-    return graph
+        n_valid = num_nodes if n_node_valid is None else n_node_valid
+        row_offsets = _csr_offsets(r_csr, n_pad)
+        t_row_offsets = _csr_offsets(t_r, n_pad)
+        with span("graph.row_split"):
+            row_split = build_row_split(row_offsets)
+            t_row_split = build_row_split(t_row_offsets)
+            dst_row_split = (None if max_dst is None
+                             else build_row_split(row_offsets[:max_dst + 1]))
+        graph = Graph(
+            senders=_pad_idx(s_csr),
+            receivers=_pad_idx(r_csr),
+            t_senders=_pad_idx(t_s),
+            t_receivers=_pad_idx(t_r),
+            csc_perm=torch.from_numpy(pad_perm),
+            row_offsets=torch.from_numpy(row_offsets),
+            t_row_offsets=torch.from_numpy(t_row_offsets),
+            node_mask=torch.arange(n_pad) < n_valid,
+            num_nodes=n_pad,
+            n_edge=e,
+            edge_weight=None if ew is None else torch.from_numpy(ew),
+            t_edge_weight=None if ew is None else torch.from_numpy(ew[pad_perm]),
+            node_scale=None if node_scale is None else torch.from_numpy(node_scale),
+            row_split=row_split,
+            t_row_split=t_row_split,
+            hub=hub,
+            edge_type=None if et is None else torch.from_numpy(et),
+            num_edge_types=int(num_edge_types),
+            max_dst=None if max_dst is None else int(max_dst),
+            dst_row_split=dst_row_split,
+        )
+        record_pair(graph.row_split, graph.row_offsets)
+        record_pair(graph.t_row_split, graph.t_row_offsets)
+        if graph.dst_row_split is not None:
+            record_pair(graph.dst_row_split, graph.row_offsets)
+        return graph
 
 
 def induced_subgraph(

@@ -31,6 +31,7 @@ import torch
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.models.gnns import GATTeacher
+from efficient_gnns_tpu_torch.tracing import span
 
 EPSILON = 1.0 - math.log(2.0)
 
@@ -152,10 +153,11 @@ class GATTeacherTrainer:
             return self.model(self.graph, self.x, generator)
         fed = label_mask[:, None]
         chan = torch.where(fed, self.onehot, 0.0)
-        for _ in range(self.cfg.n_label_iters):
-            with torch.no_grad():
-                logits, _ = self.model(self.graph, torch.cat([self.x, chan], -1), generator)
-            chan = torch.where(fed, self.onehot, torch.softmax(logits, -1))
+        with span("trainer.label_reuse"):
+            for _ in range(self.cfg.n_label_iters):
+                with torch.no_grad():
+                    logits, _ = self.model(self.graph, torch.cat([self.x, chan], -1), generator)
+                chan = torch.where(fed, self.onehot, torch.softmax(logits, -1))
         return self.model(self.graph, torch.cat([self.x, chan], -1), generator)
 
     def _accuracy(self, pred, mask):
@@ -164,18 +166,24 @@ class GATTeacherTrainer:
     def _train_step(self, epoch: int):
         cfg, gen = self.cfg, self.generator
         gen.manual_seed(int(np.random.SeedSequence([self.seed, epoch]).generate_state(1)[0]))
-        coin = torch.rand(self.graph.num_nodes, generator=gen, device=self.device) < cfg.mask_rate
-        if cfg.use_labels:
-            label_fed, pred_mask = self.train_mask & coin, self.train_mask & ~coin
-        else:
-            label_fed, pred_mask = torch.zeros_like(coin), self.train_mask & coin
-        self.model.train()
-        logits, _ = self._forward(label_fed, gen)
-        loss = log_eps_loss(logits, self.y, pred_mask)
+        with span("trainer.forward"):
+            coin = torch.rand(self.graph.num_nodes, generator=gen,
+                              device=self.device) < cfg.mask_rate
+            if cfg.use_labels:
+                label_fed, pred_mask = self.train_mask & coin, self.train_mask & ~coin
+            else:
+                label_fed, pred_mask = torch.zeros_like(coin), self.train_mask & coin
+            self.model.train()
+            logits, _ = self._forward(label_fed, gen)
+        with span("trainer.criterion"):
+            loss = log_eps_loss(logits, self.y, pred_mask)
+            train_acc = self._accuracy(logits.detach().argmax(-1), self.train_mask)
         self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.opt.step()
-        return loss.detach(), self._accuracy(logits.detach().argmax(-1), self.train_mask)
+        with span("trainer.backward"):
+            loss.backward()
+        with span("trainer.optimizer"):
+            self.opt.step()
+        return loss.detach(), train_acc
 
     @torch.no_grad()
     def _inference(self, label_mask):
@@ -221,11 +229,15 @@ class GATTeacherTrainer:
             best = self.init_best()
         rows = []
         for epoch in range(start_epoch, start_epoch + k):
-            loss, train_acc = self._train_step(epoch)
-            logits, feats, accs, losses = self._eval_step()
-            self._track_best(best, logits, feats, accs, losses)
-            rows.append(torch.stack([loss, train_acc, *accs, *losses]).float())
-        return best, torch.stack(rows).cpu().numpy()
+            with span("trainer.epoch"):
+                loss, train_acc = self._train_step(epoch)
+                with span("trainer.eval"):
+                    logits, feats, accs, losses = self._eval_step()
+                    with span("trainer.track_best"):
+                        self._track_best(best, logits, feats, accs, losses)
+                    rows.append(torch.stack([loss, train_acc, *accs, *losses]).float())
+        with span("trainer.readback"):
+            return best, torch.stack(rows).cpu().numpy()
 
     def dump_outputs(self, best: dict, label_mode: str = "train"):
         """(logits, feats) of the best-validation weights under ``label_mode``:

@@ -37,6 +37,7 @@ from efficient_gnns_tpu_torch.graphs.preprocess import build_graph
 from efficient_gnns_tpu_torch.graphs.row_split import RowSplit
 from efficient_gnns_tpu_torch.models.gnns import RGCN, ProjectionMLP
 from efficient_gnns_tpu_torch.sampling.saint import GraphSaintRandomWalkSampler, SaintSubgraph
+from efficient_gnns_tpu_torch.tracing import span
 from efficient_gnns_tpu_torch.train.config import DistillConfig
 from efficient_gnns_tpu_torch.train.layerwise import RGCNLayerwiseInference
 from efficient_gnns_tpu_torch.train.node_trainer import _derived_seed
@@ -73,27 +74,26 @@ def upload_bytes(sub: SaintSubgraph) -> int:
 
 class _SamplePrefetcher:
     """Draws the sampler's subgraphs in one background thread, ``depth``
-    ahead, and moves them to the trainer's device (``upload``). Records the
-    host seconds of ``sample()`` and of the upload."""
+    ahead, and moves them to the trainer's device (``upload``), counting them
+    in ``samples``. ``sample()`` and the upload run in the spans
+    ``sampler.sample`` and ``sampler.upload`` (``tracing.py``)."""
 
     def __init__(self, sampler: GraphSaintRandomWalkSampler, upload, depth: int = 2):
         self._sampler, self._upload = sampler, upload
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._exc: Optional[BaseException] = None
-        self.sample_s, self.upload_s, self.samples = 0.0, 0.0, 0
+        self.samples = 0
         self._thread = threading.Thread(target=self._work, daemon=True)
         self._thread.start()
 
     def _work(self):
         try:
             while not self._stop.is_set():
-                t0 = time.perf_counter()
-                sub = self._sampler.sample()
-                t1 = time.perf_counter()
-                item = self._upload(sub)
-                self.sample_s += t1 - t0
-                self.upload_s += time.perf_counter() - t1
+                with span("sampler.sample"):
+                    sub = self._sampler.sample()
+                with span("sampler.upload"):
+                    item = self._upload(sub)
                 self.samples += 1
                 while not self._stop.is_set():
                     try:

@@ -21,6 +21,7 @@ import torch
 from efficient_gnns_tpu_torch.distill import criteria
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.models.gnns import ProjectionGCD, ProjectionMLP
+from efficient_gnns_tpu_torch.tracing import span
 from efficient_gnns_tpu_torch.train import checkpoint
 from efficient_gnns_tpu_torch.train.config import DistillConfig
 
@@ -150,30 +151,34 @@ class NodeDistillTrainer:
         tr = self.split_idx["train"]
         self.generator.manual_seed(_derived_seed(self.seed, epoch))
         self.modules.train()
-        logits, feat = self.model(self.graph, self.x, generator=self.generator)
-        out, labels = logits[tr], self.y[tr]
-        if cfg.training == "supervised":
-            loss = criteria.cls_ce(out, labels)
-            loss_cls, loss_aux = loss, loss * 0
-        elif cfg.training == "kd":
-            loss, loss_cls, loss_aux = criteria.kd_criterion(
-                out, labels, self.teacher_logits[tr], cfg.alpha, cfg.kd_T,
-                reduction=cfg.kd_reduction,
-            )
-        else:  # the representation-distillation modes
-            loss_aux = self._aux_term(feat, labels, tr)
-            if cfg.kd_and_aux:  # loss = KD total + beta * aux
-                kd_loss, loss_cls, _ = criteria.kd_criterion(
+        with span("trainer.forward"):
+            logits, feat = self.model(self.graph, self.x, generator=self.generator)
+        with span("trainer.criterion"):
+            out, labels = logits[tr], self.y[tr]
+            if cfg.training == "supervised":
+                loss = criteria.cls_ce(out, labels)
+                loss_cls, loss_aux = loss, loss * 0
+            elif cfg.training == "kd":
+                loss, loss_cls, loss_aux = criteria.kd_criterion(
                     out, labels, self.teacher_logits[tr], cfg.alpha, cfg.kd_T,
                     reduction=cfg.kd_reduction,
                 )
-                loss = kd_loss + cfg.beta * loss_aux
-            else:
-                loss_cls = criteria.cls_ce(out, labels)
-                loss = loss_cls + cfg.beta * loss_aux
+            else:  # the representation-distillation modes
+                loss_aux = self._aux_term(feat, labels, tr)
+                if cfg.kd_and_aux:  # loss = KD total + beta * aux
+                    kd_loss, loss_cls, _ = criteria.kd_criterion(
+                        out, labels, self.teacher_logits[tr], cfg.alpha, cfg.kd_T,
+                        reduction=cfg.kd_reduction,
+                    )
+                    loss = kd_loss + cfg.beta * loss_aux
+                else:
+                    loss_cls = criteria.cls_ce(out, labels)
+                    loss = loss_cls + cfg.beta * loss_aux
         self.opt.zero_grad(set_to_none=True)
-        loss.backward()
-        self.opt.step()
+        with span("trainer.backward"):
+            loss.backward()
+        with span("trainer.optimizer"):
+            self.opt.step()
         self.step += 1
         return loss.detach(), loss_cls.detach(), loss_aux.detach()
 
@@ -192,9 +197,12 @@ class NodeDistillTrainer:
         (loss, loss_cls, loss_aux, acc_train, acc_valid, acc_test)."""
         rows = []
         for epoch in range(start_epoch, start_epoch + k):
-            losses = self._train_step(epoch)
-            rows.append(torch.stack([*losses, *self._eval_step()[1]]))
-        return torch.stack(rows).float().cpu().numpy()
+            with span("trainer.epoch"):
+                losses = self._train_step(epoch)
+                with span("trainer.eval"):
+                    rows.append(torch.stack([*losses, *self._eval_step()[1]]))
+        with span("trainer.readback"):
+            return torch.stack(rows).float().cpu().numpy()
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One train step (the generator seeded from ``(seed, epoch)``);

@@ -45,7 +45,8 @@ def test_port_imports_without_jax():
                  "analysis.correlation", "analysis.curves", "cli.submit", "cli.sweep",
                  "cli.results", "parallel", "parallel.mesh", "parallel.launch",
                  "parallel.collectives", "parallel.partition", "parallel.ring",
-                 "parallel.dryrun", "parallel.sharded_trainer", "parallel.tensor"):
+                 "parallel.dryrun", "parallel.sharded_trainer", "parallel.tensor",
+                 "tracing"):
         assert f"efficient_gnns_tpu_torch.{name}" in modules, name
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(

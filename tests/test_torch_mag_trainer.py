@@ -22,6 +22,7 @@ import pytest
 from efficient_gnns_tpu.data.mag import synthetic_mag_dataset as jax_mag_dataset
 from efficient_gnns_tpu.train.config import DistillConfig as JaxConfig
 from efficient_gnns_tpu.train.mag_trainer import MagTrainer as JaxMagTrainer
+from efficient_gnns_tpu_torch import tracing
 from efficient_gnns_tpu_torch.cli import mag as cli
 from efficient_gnns_tpu_torch.data import synthetic_mag_dataset
 from efficient_gnns_tpu_torch.models import from_jax_params
@@ -96,13 +97,24 @@ class _Sampler:
 
 
 def test_prefetcher_keeps_the_order_and_surfaces_a_failure():
-    p = _SamplePrefetcher(_Sampler(fail_at=4), lambda s: s, depth=2)
-    assert [p.get() for _ in range(3)] == [1, 2, 3]
-    with pytest.raises(RuntimeError, match="failed") as info:
-        p.get()
-    assert isinstance(info.value.__cause__, KeyError)
-    p.close()
-    assert p.samples == 3 and p.sample_s >= 0
+    tracing.reset()
+    tracing.enable()
+    try:
+        p = _SamplePrefetcher(_Sampler(fail_at=4), lambda s: s, depth=2)
+        assert [p.get() for _ in range(3)] == [1, 2, 3]
+        with pytest.raises(RuntimeError, match="failed") as info:
+            p.get()
+        assert isinstance(info.value.__cause__, KeyError)
+        p.close()
+    finally:
+        tracing.enable(False)
+    spans = [r for r in tracing.records() if r.name.startswith("sampler.")]
+    tracing.reset()
+    assert p.samples == 3
+    # three samples drawn and uploaded on the prefetch thread, the fourth raised
+    assert [r.name for r in spans] == ["sampler.sample", "sampler.upload"] * 3 + ["sampler.sample"]
+    assert {r.thread for r in spans} == {p._thread.ident}
+    assert all(r.t0_ns <= r.t1_ns for r in spans)
 
 
 def test_prefetcher_close_raises_while_the_thread_is_inside_sample():
