@@ -39,11 +39,15 @@ it imports nothing of JAX. Phases, each of which must pass:
    ``hub_gat_attention`` on the card against the CPU on a graph of over
    200k edges with the hub partition, at the teacher's widths, with and without
    edge-drop (the same keep set on both devices; float32 and the bfloat16
-   default hub messages);
+   default hub messages), and the fused hub layer (``sqrt(deg_in)`` scale
+   and residual) against the chain of PyTorch passes it replaces: the output,
+   dfeat and dres the same bits; then (``hub_fused``) each of the layer's
+   four fused passes against its plain version at arxiv N and the teacher's
+   widths, with its time beside its byte bound;
 8. the teacher slice: ``efficient_gnns_tpu_torch.cli.gat_teacher`` trains
    the 3 x 3 x 250 GAT teacher at arxiv shape with the flags of
    ``experiments/arxiv_hard.sh`` (``--no-attn-dst``: the hub attention path,
-   K1 alone) and dumps it, then the same teacher with attn-dst on (K2,
+   K1 and the hub layer's fused passes) and dumps it, then the same teacher with attn-dst on (K2,
    K4-K7), with every kernel's launch counter read around each run; then
    ``cli.arxiv`` trains the GCN student from the flagship dump in ``kd``,
    ``nce`` (MLP projection heads, 8192 sampled rows) and ``gcd``
@@ -246,11 +250,16 @@ TEACHER_EPOCHS = 3
 # forwards (2 train + 2 eval per layer) and 3 layer backwards.
 # --no-attn-dst on the hub path: one spmm a forward (K1), its transpose a
 # backward (K1), nothing else.
-TEACHER_LAUNCHES = {"K1": 12 + 3, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
+# Around each K1 launch the hub layer's fused passes: the messages and the
+# epilogue a forward, the cotangent and the message gradient a backward.
+TEACHER_LAUNCHES = {"K1": 12 + 3, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
+                    "hub_messages": 12, "hub_epilogue": 12, "hub_cotangent": 3,
+                    "hub_message_grad": 3}
 # attn-dst: forward K2 1, K5 1, K6 1, K7 3 (er, max, 1/sum); backward K2 1,
 # K4 1, K5 3 (softmax VJP, der, del), K7 1
 TEACHER_ATTN_DST_LAUNCHES = {"K1": 0, "K2": 12 + 3, "K3": 0, "K4": 3, "K5": 12 + 3 * 3,
-                             "K6": 12, "K7": 12 * 3 + 3}
+                             "K6": 12, "K7": 12 * 3 + 3, "hub_messages": 0,
+                             "hub_epilogue": 0, "hub_cotangent": 0, "hub_message_grad": 0}
 HEADS = ((3, 250), (1, 40))  # the teacher's hidden layers and its last layer
 # experiments/all_workloads.sh:11-13 (the hard task) at the reference's full
 # SIGN width (arxiv_dgl/sign.py defaults), cut in time only: 10 epochs, 1 run
@@ -274,6 +283,15 @@ def _counters():
     return {"K1": K.csr_segment_sum, "K2": K.csr_segment_sum_heads, "K3": K.csr_sddmm,
             "K4": K.csr_sddmm_heads, "K5": K.csr_segment_sum_thin,
             "K6": K.csr_segment_max_thin, "K7": K.csr_tile_rows_thin}
+
+
+def _hub_counters():
+    """The hub attention layer's fused passes (``ops/cuda/hub_fused.py``) by
+    name: each counts its own launches."""
+    from efficient_gnns_tpu_torch.ops.cuda import hub_fused as H
+
+    return {"hub_messages": H.hub_messages, "hub_epilogue": H.hub_epilogue,
+            "hub_cotangent": H.hub_cotangent, "hub_message_grad": H.hub_message_grad}
 
 
 def _time_ms(fn, reps=None, budget_ms=1500.0):
@@ -1184,7 +1202,8 @@ def phase_hub_attention():
     cotangents of thousands of receivers with cancellation, so an entry's own
     size is no scale); and the card's bfloat16 default within 1e-2 of
     max|out| of the float32 CPU result. K1 twice (forward, transpose
-    backward), nothing else. Returns the failures."""
+    backward) and each of the layer's four fused passes once, nothing else.
+    Returns the failures."""
     import torch
 
     from efficient_gnns_tpu_torch.data import synthetic_node_dataset
@@ -1205,7 +1224,7 @@ def phase_hub_attention():
             for dev in ("cpu", DEVICE)}
     if not torch.equal(keep["cpu"], keep[DEVICE].cpu()):
         failures.append("hub attention: the keep set differs between the devices")
-    counters = _counters()
+    counters = {**_counters(), **_hub_counters()}
     for h, d in HEADS:
         feat = torch.randn(n, h, d, generator=gen)
         el = torch.randn(n, h, generator=gen) * 2
@@ -1243,7 +1262,8 @@ def phase_hub_attention():
                   + " / ".join(f"{r:.3e}" for r in ratios)
                   + f", bfloat16 messages out {bf16_err:.3e} (max|out| "
                   f"{float(want[0].abs().max()):.3f}), launches {launches}", flush=True)
-            if launches != {"K1": 2, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}:
+            if launches != {"K1": 2, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
+                            **{k: 1 for k in _hub_counters()}}:
                 failures.append(f"hub attention {tag}: launches {launches}")
             for name, err, scale in zip(("out", "dfeat", "del"), errs, scales):
                 if not bool((err <= 1e-6 + 1e-4 * scale).all()):
@@ -1251,8 +1271,167 @@ def phase_hub_attention():
             if not (bf16_err <= 1e-2 * float(want[0].abs().max())
                     and all(bool(torch.isfinite(t).all()) for t in bf16)):
                 failures.append(f"hub attention {tag}: bfloat16 messages too far")
+            failures += _hub_layer_vs_chain(graph, feat, el, cot, drop, tag)
     torch.cuda.synchronize()
     return failures
+
+
+def _hub_chain(graph, feat_src, el, *, edge_drop, drop_seed, dst_scale, residual):
+    """The hub layer before its fused kernels: separate PyTorch passes around
+    one ``spmm`` (K1): messages concatenated in float32 and cast by the
+    SpMM, a strided split, ``_Normalize``, the scale's broadcast multiply
+    and the residual's add."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops import dispatch
+    from efficient_gnns_tpu_torch.ops import hub_attention as hub
+    from efficient_gnns_tpu_torch.ops.spmm import spmm
+
+    n, h, d = feat_src.shape
+    dp = -(-d // 128) * 128
+    hp = 0 if d < dp else -(-h // 128) * 128
+    e = torch.nn.functional.leaky_relu(el.float(), 0.2)
+    m = e.detach().max(0, keepdim=True).values
+    z = torch.exp(torch.clamp_min(e - m, -60.0))
+    zx = feat_src.float() * z[:, :, None]
+    if hp == 0:
+        y = torch.cat([zx, z[:, :, None], zx.new_zeros(n, h, dp - d - 1)], -1).reshape(n, h * dp)
+    else:
+        y = torch.cat([zx.reshape(n, h * dp), torch.nn.functional.pad(z, (0, hp - h))], -1)
+    weight = None
+    if drop_seed is not None and edge_drop > 0.0:
+        weight = hub.hub_keep_weights(graph, drop_seed, 1.0 - edge_drop)
+    total = spmm(graph, y, edge_weight=weight, weight_grad=False,
+                 message_dtype=dispatch.hub_message_dtype())
+    if hp == 0:
+        num, den, _ = total.view(n, h, dp).split([d, 1, dp - d - 1], -1)
+        den = den[:, :, 0]
+    else:
+        num, den, _ = total.split([h * dp, h, hp - h], -1)
+        num = num.view(n, h, dp)
+    return hub._Normalize.apply(num, den) * dst_scale[:, None, None] + residual
+
+
+def _hub_layer_vs_chain(graph, feat, el, cot, drop, tag):
+    """The fused hub layer (with the ``sqrt(deg_in)`` scale and a residual,
+    bfloat16 messages) against :func:`_hub_chain` on the card: the output,
+    dfeat and dres the same bits (the backward's message columns are
+    elementwise), del within 2**-8 of its largest entry (the cotangent's
+    scalar column sums over D in another order before its bfloat16 cast, so
+    an entry may round to the neighbouring bfloat16). Returns the failures."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops import hub_attention as hub
+
+    g = graph.to(DEVICE)
+    res = torch.randn(feat.shape, generator=torch.Generator().manual_seed(9))
+    scale = torch.sqrt(g.in_degrees().clamp_min(1.0))
+    seed = None if drop is None else torch.tensor(drop, device=DEVICE)
+    outs = []
+    for fn in (hub.hub_gat_attention, _hub_chain):
+        f, e, r = (t.to(DEVICE, copy=True).requires_grad_() for t in (feat, el, res))
+        out = fn(g, f, e, edge_drop=0.3, drop_seed=seed, dst_scale=scale, residual=r)
+        (out * cot.to(DEVICE)).sum().backward()
+        outs.append([t.detach() for t in (out, f.grad, r.grad, e.grad)])
+    (fused, chain) = outs
+    same = [torch.equal(a, b) for a, b in zip(fused[:3], chain[:3])]
+    del_err = float((fused[3] - chain[3]).abs().max() / chain[3].abs().max())
+    print(f"hub layer {tag}: fused vs the chain, bfloat16 messages: out / dfeat / dres "
+          + " / ".join("same bits" if x else "DIFFER" for x in same)
+          + f", del max err / max|del| {del_err:.3e}", flush=True)
+    if not all(same) or not del_err <= 2**-8:
+        return [f"hub layer {tag}: fused layer differs from the chain"]
+    return []
+
+
+def phase_hub_fused(graph):
+    """The hub attention layer's four fused passes (``ops/cuda/hub_fused.py``)
+    against their plain versions, the PyTorch chain they replace,
+    on the card at the teacher's shapes (N of ``graph``; H = 3, D = 250: F =
+    768; H = 1, D = 40: F = 128; bfloat16 messages): the forward passes and
+    the backward's elementwise columns the same bits, the two sums over D
+    (the cotangent's scalar column, dz) within 1e-5 of their sums of
+    |terms|; each kernel's device time beside its byte bound and the chain's
+    time. Returns (records, failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops.cuda import hub_fused as H
+
+    n = graph.num_nodes
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    records, failures = [], []
+    bf16, f32 = torch.bfloat16, torch.float32
+    src = "efficient_gnns_tpu_torch/ops/cuda/csrc/hub_fused.cu"
+    for h, d in HEADS:
+        dp, hp = H.hub_layout(h, d)
+        w = h * dp + hp
+
+        def rand(*shape):
+            return torch.randn(*shape, generator=gen, device=DEVICE)
+
+        x, g, res = rand(n, h, d), rand(n, h, d), rand(n, h, d)
+        z = torch.rand(n, h, generator=gen, device=DEVICE) + 1e-3
+        total, dy = rand(n, w), rand(n, w)
+        H._unfold(total, h, d)[1].abs_().add_(0.5)
+        scale = torch.sqrt(torch.randint(1, 50, (n,), generator=gen, device=DEVICE).float())
+        xd, hd, sd = n * h * d * 4, n * h * 4, n * 4  # bytes of [N, H, D], [N, H], [N]
+        cases = {
+            "hub_messages": (lambda: H.hub_messages(x, z, bf16),
+                             lambda: H.hub_messages_plain(x, z, bf16), xd + hd + n * w * 2),
+            "hub_epilogue": (lambda: H.hub_epilogue(total, h, d, scale, res),
+                             lambda: H.hub_epilogue_plain(total, h, d, scale, res),
+                             (xd + hd) + sd + xd + xd),
+            "hub_cotangent": (lambda: H.hub_cotangent(g, total, scale, bf16),
+                              lambda: H.hub_cotangent_plain(g, total, scale, bf16),
+                              xd + (xd + hd) + sd + n * w * 2),
+            "hub_message_grad": (lambda: H.hub_message_grad(dy, x, z),
+                                 lambda: H.hub_message_grad_plain(dy, x, z),
+                                 (xd + hd) + xd + hd + xd + hd),
+        }
+        # the sums over D against their sums of |terms|
+        ct = H.hub_cotangent(g, total, scale, f32)
+        ct_want = H.hub_cotangent_plain(g, total, scale, f32)
+        ct_terms = H.hub_cotangent_plain(g.abs(), total.abs(), scale, f32)
+        dx, dz = H.hub_message_grad(dy, x, z)
+        dx_want, dz_want = H.hub_message_grad_plain(dy, x, z)
+        dz_terms = H.hub_message_grad_plain(dy.abs(), x.abs(), z)[1]
+        (cb, cc), (wb, wc) = H._unfold(ct, h, d), H._unfold(ct_want, h, d)
+        sum_err = [float((cc - wc).abs().max()), float((dz - dz_want).abs().max())]
+        sums_ok = (bool(((cc - wc).abs() <= 1e-5 * H._unfold(ct_terms, h, d)[1].abs()).all())
+                   and bool(((dz - dz_want).abs() <= 1e-5 * dz_terms).all()))
+        same = {
+            "hub_messages": torch.equal(cases["hub_messages"][0](), cases["hub_messages"][1]()),
+            "hub_epilogue": torch.equal(cases["hub_epilogue"][0](), cases["hub_epilogue"][1]()),
+            "hub_cotangent": (torch.equal(cb, wb) and torch.equal(
+                H._unfold(cases["hub_cotangent"][0](), h, d)[0],
+                H._unfold(cases["hub_cotangent"][1](), h, d)[0])),
+            "hub_message_grad": torch.equal(dx, dx_want),
+        }
+        for name, (kernel, plain, n_bytes) in cases.items():
+            ms = _time_ms(kernel, 20)
+            plain_ms = _time_ms(plain, 5)
+            bound_ms, bound_by = _bound(n_bytes, 0)
+            tag = f"{name} F={w} H={h} D={d} bf16"
+            records.append({
+                "name": tag, "route": "cuda", "source": src,
+                "replaces": "none: the elementwise chain around K1 of "
+                            "efficient_gnns_tpu/ops/hub_attention.py::hub_gat_attention",
+                "launches": None, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": plain_ms,
+                "same_bits": same[name], "shape": {"N": n, "H": h, "D": d, "W": w},
+            })
+            print(f"  {tag}: {'same bits' if same[name] else 'DIFFERENT BITS'} as the chain, "
+                  f"ms={ms:.4f} bound_ms={bound_ms:.4f} ({100 * bound_ms / ms:.1f}% of the "
+                  f"byte bound) chain ms={plain_ms:.4f} ({plain_ms / ms:.2f}x)", flush=True)
+            if not same[name]:
+                failures.append(f"{tag}: not the chain's bits")
+        print(f"  hub fused H={h} D={d}: sums over D max_abs_err cotangent / dz "
+              f"{sum_err[0]:.3e} / {sum_err[1]:.3e} {'ok' if sums_ok else 'TOO FAR'}",
+              flush=True)
+        if not sums_ok:
+            failures.append(f"hub fused H={h} D={d}: a sum over D too far from the chain's")
+    torch.cuda.synchronize()
+    return records, failures
 
 
 def _teacher_run(argv, expected):
@@ -1262,7 +1441,7 @@ def _teacher_run(argv, expected):
 
     from efficient_gnns_tpu_torch.cli import gat_teacher
 
-    counters = _counters()
+    counters = {**_counters(), **_hub_counters()}
     for c in counters.values():
         c.launches = 0
     summary = gat_teacher.main(argv + [
@@ -1285,7 +1464,7 @@ def _teacher_run(argv, expected):
 def phase_teacher_slice():
     """The teacher CLI at arxiv shape with the flags of
     ``experiments/arxiv_hard.sh`` step 1 (``--no-attn-dst``: the hub attention
-    path, K1 alone) and again with attn-dst on (K2, K4-K7), every kernel
+    path, K1 and the hub layer's fused passes) and again with attn-dst on (K2, K4-K7), every kernel
     counted; then the student from the flagship teacher's dump in ``kd``,
     ``nce`` and ``gcd`` mode (K1 counted). The dump stays for the SIGN slice.
     Returns (launches by kernel, summed over the runs, and failures)."""
@@ -3392,7 +3571,7 @@ def phase_parallel(smi):
 
 
 PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
-          "thin_group_sweep", "reference", "teacher_reference", "hub_attention",
+          "thin_group_sweep", "reference", "teacher_reference", "hub_attention", "hub_fused",
           "sign_reference", "slice", "teacher_slice", "sign_slice", "checkpoint",
           "ogbn_cache", "runtime_spmm", "teacher_profile", "student_profile", "sign_profile",
           "ppi_kernels", "ppi_reference", "ppi_slice", "ppi_profile", "mag_kernels",
@@ -3443,7 +3622,8 @@ def main(argv=None) -> int:
     print(f"arxiv-shaped dataset built in {time.time() - t0:.1f} s", flush=True)
     records = []
     for name, phase in (("k1", phase_k1), ("attention_kernels", phase_attention_kernels),
-                        ("k3", phase_k3), ("heads_bf16_kernels", phase_heads_bf16_kernels)):
+                        ("k3", phase_k3), ("heads_bf16_kernels", phase_heads_bf16_kernels),
+                        ("hub_fused", phase_hub_fused)):
         recs, fails = run(name, phase, ds.graph) or ([], [])
         records, failures = records + recs, failures + fails
     failures += run("split_edges", phase_split_edges) or []

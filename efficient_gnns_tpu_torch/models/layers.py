@@ -191,7 +191,8 @@ class DGLGATConv(nn.Module):
     :func:`~efficient_gnns_tpu_torch.ops.hub_attention.hub_gat_attention`:
     one SpMM with a global max shift, hub message dtype and hashed edge-drop
     masks, drawing one uint32 drop seed per call from ``generator`` in
-    training. Everywhere else the exact edge softmax of
+    training; the ``deg_in^1/2`` scale and the residual go into its fused
+    epilogue. Everywhere else the exact edge softmax of
     :func:`~efficient_gnns_tpu_torch.ops.attention.gat_attention`. Dense
     kernels keep the flax layout ``[in, out]``: ``fc_weight`` is flax
     ``Dense_0``, ``res_weight`` ``Dense_1``.
@@ -235,8 +236,15 @@ class DGLGATConv(nn.Module):
             if self.training and self.edge_drop > 0:
                 drop_seed = torch.randint(0, 2**32, (), generator=generator,
                                           device=x.device, dtype=torch.int64)
+            # the scale and the residual go into the attention's fused epilogue
+            scale = res = None
+            if self.use_symmetric_norm:
+                scale = torch.sqrt(graph.in_degrees().clamp_min(1.0)).to(feat.dtype)
+            if self.res_weight is not None:
+                res = (x @ self.res_weight).view(-1, h, d)
             rst = hub_gat_attention(graph, feat_src, el, negative_slope=self.negative_slope,
-                                    edge_drop=self.edge_drop, drop_seed=drop_seed)
+                                    edge_drop=self.edge_drop, drop_seed=drop_seed,
+                                    dst_scale=scale, residual=res)
         else:
             er = None
             if self.attn_r is not None:
@@ -248,11 +256,11 @@ class DGLGATConv(nn.Module):
             rst = gat_attention(graph, feat_src, el, er,
                                 negative_slope=self.negative_slope, keep_mask=keep,
                                 attn_keep=attn, attn_keep_prob=1.0 - self.attn_drop)
-        if self.use_symmetric_norm:
-            degs = graph.in_degrees().clamp_min(1.0)
-            rst = rst * torch.sqrt(degs)[:, None, None].to(rst.dtype)
-        if self.res_weight is not None:
-            rst = rst + (x @ self.res_weight).view(-1, h, d)
+            if self.use_symmetric_norm:
+                degs = graph.in_degrees().clamp_min(1.0)
+                rst = rst * torch.sqrt(degs)[:, None, None].to(rst.dtype)
+            if self.res_weight is not None:
+                rst = rst + (x @ self.res_weight).view(-1, h, d)
         if self.activation is not None:
             rst = self.activation(rst)
         return rst  # [N, H, D]

@@ -4,9 +4,22 @@ built with ``nvcc`` at its first launch (see ``build.py``).
 
 K1 ``csr_segment_sum``; K2 ``csr_segment_sum_heads``; K3 ``csr_sddmm``; K4
 ``csr_sddmm_heads``; K5 ``csr_segment_sum_thin``; K6 ``csr_segment_max_thin``;
-K7 ``csr_tile_rows_thin`` (numbered as the TPU kernels they replace).
+K7 ``csr_tile_rows_thin`` (numbered as the TPU kernels they replace). The
+hub attention layer's fused elementwise passes around K1, which replace no
+TPU kernel: ``hub_messages``, ``hub_epilogue``, ``hub_cotangent``,
+``hub_message_grad`` (``hub_fused.py``).
 """
 
+from efficient_gnns_tpu_torch.ops.cuda.hub_fused import (
+    hub_cotangent,
+    hub_cotangent_plain,
+    hub_epilogue,
+    hub_epilogue_plain,
+    hub_message_grad,
+    hub_message_grad_plain,
+    hub_messages,
+    hub_messages_plain,
+)
 from efficient_gnns_tpu_torch.ops.cuda.segment_heads import (
     csr_sddmm_heads,
     csr_sddmm_heads_plain,
@@ -40,4 +53,12 @@ __all__ = [
     "csr_segment_sum_thin",
     "csr_tile_rows_thin",
     "csr_tile_rows_thin_plain",
+    "hub_cotangent",
+    "hub_cotangent_plain",
+    "hub_epilogue",
+    "hub_epilogue_plain",
+    "hub_message_grad",
+    "hub_message_grad_plain",
+    "hub_messages",
+    "hub_messages_plain",
 ]

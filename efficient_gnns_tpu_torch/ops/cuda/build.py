@@ -23,7 +23,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "_build",
 )
-SOURCES = ("segment_sum", "segment_heads", "segment_thin", "segment_sddmm")
+SOURCES = ("segment_sum", "segment_heads", "segment_thin", "segment_sddmm", "hub_fused")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -9,10 +9,15 @@ and depends on the sender alone, so
 and the whole attention collapses to ``out[r] = (A @ (z * x))[r] / (A @ z)[r]``.
 The JAX package computes this over its hub-dense decomposition (dense hub
 slices on the TPU's matrix unit, the residual edges on a Pallas scatter).
-The port computes the same function as ONE ``spmm`` over the full CSR with
+The port computes the same function as ONE segment sum over the full CSR of
 ``y = [z * x | z]``: K1 forward, K1 over the transpose CSR backward, whose
-row split already handles the hub rows. It keeps everything that makes the
-JAX path another function than the exact edge softmax:
+row split already handles the hub rows. Around K1 the layer is one
+autograd function (:class:`_HubLayer`) whose elementwise passes are fused
+kernels (``ops/cuda/hub_fused.py``): the messages before K1, the
+normalisation with the layer's ``sqrt(deg_in)`` scale and residual after it,
+and their two backward passes around the transpose launch. It keeps
+everything that makes the JAX path another function than the exact edge
+softmax:
 
 * a global per-head max shift ``m`` (no gradient) instead of the per-receiver
   max, with ``z = exp(max(e - m, -60))``: the floor keeps every ``z`` a
@@ -20,8 +25,9 @@ JAX path another function than the exact edge softmax:
   below the global max gets weights flattened toward uniform;
 * messages in ``dispatch.hub_message_dtype()`` (bfloat16 by default) with
   float32 accumulation; the backward reads the cotangent in that dtype too;
-* ``num / den`` through :class:`_Normalize`, whose backward reciprocates
-  ``den`` once, and 0 (with zero gradient) for an empty row;
+* ``num / den`` by the rule of :class:`_Normalize` (``hub_fused.normalize``
+  and ``normalize_grads``): the backward reciprocates ``den`` once, and an
+  empty row gives 0 with zero gradient;
 * edge-drop as hashed Bernoulli keep weights fixed per edge by ``drop_seed``
   (:func:`hub_keep_weights`), bit for bit the JAX masks: a residual edge
   hashes its CSR id, a hub edge its cell of the hub grid (the graph's
@@ -42,10 +48,17 @@ import torch
 
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.ops import dispatch
-from efficient_gnns_tpu_torch.ops.spmm import spmm
+from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
+from efficient_gnns_tpu_torch.ops.cuda.hub_fused import (
+    hub_cotangent,
+    hub_epilogue,
+    hub_message_grad,
+    hub_messages,
+    normalize,
+    normalize_grads,
+)
 
 _M32 = 0xFFFFFFFF
-_F32_TINY = float(torch.finfo(torch.float32).tiny)
 SALT_RESIDUAL, SALT_HUB_SRC, SALT_HUB_DST = 0x5EED, 0x51, 0xD5
 
 
@@ -125,21 +138,50 @@ class _Normalize(torch.autograd.Function):
     parameters. A denominator below the smallest normal float32 counts as
     empty (0 out, 0 gradient): the reference's XLA flushes subnormal floats
     to zero, and ``1 / den`` of a subnormal ``den`` overflows to inf. On the
-    hub path it never arises, since every kept edge adds ``z >= e**-60``."""
+    hub path it never arises, since every kept edge adds ``z >= e**-60``.
+    The rule alone, as a function of ``(num, den)``: the layer runs it inside
+    :class:`_HubLayer`'s fused epilogue and cotangent passes."""
 
     @staticmethod
     def forward(ctx, num, den):
-        # one pass over num: an empty row divides its zeros by inf
-        out = num / torch.where(den >= _F32_TINY, den, float("inf"))[:, :, None]
+        out = normalize(num, den)
         ctx.save_for_backward(out, den)
         return out
 
     @staticmethod
     def backward(ctx, g):
         out, den = ctx.saved_tensors
-        pos = (den >= _F32_TINY)[:, :, None]
-        inv = torch.where(pos, 1.0, 0.0) / torch.where(pos, den[:, :, None], 1.0)
-        return g * inv, -(g * out).sum(-1) * inv[:, :, 0]
+        return normalize_grads(g, out, den)
+
+
+class _HubLayer(torch.autograd.Function):
+    """``normalize(A_w @ [z * x | z]) * scale + res`` as K1 between fused
+    passes: :func:`hub_messages`, K1, :func:`hub_epilogue` forward;
+    :func:`hub_cotangent`, K1 over the transpose CSR (with the keep weights
+    in transpose order), :func:`hub_message_grad` backward. The residual's
+    gradient is the output's. Saves ``x``, ``z``, K1's sums and the scale
+    when an input needs a gradient, nothing otherwise (``no_grad``)."""
+
+    @staticmethod
+    def forward(ctx, x, z, scale, res, graph: Graph, weight, msg_dtype):
+        _, h, d = x.shape
+        y = hub_messages(x, z, msg_dtype)
+        total = csr_segment_sum(y, graph.senders, graph.row_offsets, weight, graph.row_split)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(x, z, total, scale, weight)
+            ctx.graph, ctx.msg_dtype = graph, msg_dtype
+        return hub_epilogue(total, h, d, scale, res)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, z, total, scale, weight = ctx.saved_tensors
+        graph = ctx.graph
+        ct = hub_cotangent(g.contiguous(), total, scale, ctx.msg_dtype)
+        w_t = None if weight is None else weight[graph.csc_perm.long()].contiguous()
+        dy = csr_segment_sum(ct, graph.t_senders, graph.t_row_offsets, w_t,
+                             graph.t_row_split)
+        dx, dz = hub_message_grad(dy, x, z)
+        return dx, dz, None, g if ctx.needs_input_grad[3] else None, None, None, None
 
 
 def hub_gat_attention(
@@ -150,10 +192,14 @@ def hub_gat_attention(
     negative_slope: float = 0.2,
     edge_drop: float = 0.0,
     drop_seed: Optional[torch.Tensor] = None,
+    dst_scale: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``out[r, h] = sum_e softmax_r(leaky_relu(el[s_e, h])) * feat_src[s_e, h]``
     over the kept edges: sender-only logits, the function of the JAX
-    ``hub_gat_attention``.
+    ``hub_gat_attention``; then ``out * dst_scale[:, None, None] +
+    residual`` where given (the GAT layer's ``sqrt(deg_in)`` scale and
+    residual, fused into the same pass).
 
     Args:
       graph: a graph that :func:`supports_hub_attention`.
@@ -163,41 +209,33 @@ def hub_gat_attention(
         an int, holding a uint32) each edge is kept with probability
         ``1 - edge_drop`` by :func:`hub_keep_weights`. ``drop_seed=None``
         keeps every edge.
+      dst_scale: optional float[N] per-receiver scale (no gradient).
+      residual: optional float[N, H, D] added to the output.
+
+    The attention, scale and residual are computed in float32; the result
+    takes ``feat_src``'s dtype.
     """
     if not supports_hub_attention(graph):
         raise ValueError(
             "hub_gat_attention: the graph needs a hub partition, no static edge "
             "weights, no factored scales and not to be a transpose (build it with "
             "hub_dense > 0 and gcn_norm=False; see supports_hub_attention)")
-    n, h, d = feat_src.shape
+    n, h, _ = feat_src.shape
     if n != graph.num_nodes or tuple(el.shape) != (n, h):
         raise ValueError(f"hub_gat_attention: feat_src must be [N={graph.num_nodes}, H, D] "
                          f"and el [N, H], got {tuple(feat_src.shape)} and {tuple(el.shape)}")
-    dp = -(-d // 128) * 128
-    z_fold = d < dp
-    hp = 0 if z_fold else -(-h // 128) * 128
 
     e = torch.nn.functional.leaky_relu(el.float(), negative_slope)
     m = e.detach().max(0, keepdim=True).values
-    z = torch.exp(torch.clamp_min(e - m, -60.0))  # [N, H]
-
-    zx = feat_src.float() * z[:, :, None]
-    if z_fold:
-        y = torch.cat([zx, z[:, :, None], zx.new_zeros(n, h, dp - d - 1)], -1).reshape(n, h * dp)
-    else:
-        y = torch.cat([zx.reshape(n, h * dp), torch.nn.functional.pad(z, (0, hp - h))], -1)
+    z = torch.exp(torch.clamp_min(e - m, -60.0)).contiguous()  # [N, H]
 
     weight = None
     if drop_seed is not None and edge_drop > 0.0:
         weight = hub_keep_weights(graph, drop_seed, 1.0 - float(edge_drop))
-    total = spmm(graph, y, edge_weight=weight, weight_grad=False,
-                 message_dtype=dispatch.hub_message_dtype())
-    # one split, whose backward is one concatenation (two slices would each
-    # scatter into a zero tensor of total's size)
-    if z_fold:
-        num, den, _ = total.view(n, h, dp).split([d, 1, dp - d - 1], -1)
-        den = den[:, :, 0]
-    else:
-        num, den, _ = total.split([h * dp, h, hp - h], -1)
-        num = num.view(n, h, dp)
-    return _Normalize.apply(num, den).to(feat_src.dtype)
+
+    def f32(t):
+        return None if t is None else t.float().contiguous()
+
+    out = _HubLayer.apply(f32(feat_src), z, f32(dst_scale), f32(residual), graph, weight,
+                          dispatch.hub_message_dtype())
+    return out.to(feat_src.dtype)

@@ -23,6 +23,7 @@ from efficient_gnns_tpu_torch.analysis.timing import device_memory_stats
 from efficient_gnns_tpu_torch.graphs import build_graph, build_row_split
 from efficient_gnns_tpu_torch.ops import dispatch, sddmm_dot
 from efficient_gnns_tpu_torch.ops import hub_attention as hub
+from efficient_gnns_tpu_torch.ops.cuda import hub_fused
 from efficient_gnns_tpu_torch.ops.cuda import (
     csr_sddmm,
     csr_sddmm_heads,
@@ -261,6 +262,58 @@ def test_hub_attention_on_card_matches_cpu(rng, cuda_device, h, d, seed):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
     if seed is not None:  # the same seed keeps the same edges on both devices
         assert torch.equal(card[3], cpu[3])
+
+
+@pytest.mark.parametrize("msg_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,d", [(3, 250), (1, 40), (2, 128), (2, 5)])
+def test_hub_fused_kernels_match_plain_on_card(rng, cuda_device, h, d, msg_dtype):
+    # forward passes and the backward's elementwise columns: the same bits;
+    # the two sums over D (the scalar column of the cotangent, dz) in
+    # another order
+    n = 300
+    dp, hp = hub_fused.hub_layout(h, d)
+    x = torch.from_numpy(rng.normal(size=(n, h, d)).astype(np.float32))
+    z = torch.from_numpy(rng.uniform(1e-3, 1.0, size=(n, h)).astype(np.float32))
+    total = torch.from_numpy(rng.normal(size=(n, h * dp + hp)).astype(np.float32))
+    _, den = hub_fused._unfold(total, h, d)
+    den.abs_().add_(0.5)
+    den[:7] = torch.tensor([0.0, 1e-39, 1e-6, 1e-3, 1.0, 3e30, 1e-44])[:, None]
+    scale = torch.from_numpy(rng.uniform(1, 3, size=n).astype(np.float32))
+    res = torch.from_numpy(rng.normal(size=(n, h, d)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(n, h, d)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(size=(n, h * dp + hp)).astype(np.float32))
+    dev = {k: t.to(cuda_device) for k, t in dict(x=x, z=z, total=total, scale=scale, res=res,
+                                                 g=g, dy=dy).items()}
+    counts = [f.launches for f in (hub_fused.hub_messages, hub_fused.hub_epilogue,
+                                   hub_fused.hub_cotangent, hub_fused.hub_message_grad)]
+    got = hub_fused.hub_messages(dev["x"], dev["z"], msg_dtype)
+    assert torch.equal(got.cpu(), hub_fused.hub_messages_plain(x, z, msg_dtype))
+    for sc, rs in ((scale, res), (None, None)):
+        got = hub_fused.hub_epilogue(dev["total"], h, d, None if sc is None else dev["scale"],
+                                     None if rs is None else dev["res"])
+        assert torch.equal(got.cpu(), hub_fused.hub_epilogue_plain(total, h, d, sc, rs))
+    got = hub_fused.hub_cotangent(dev["g"], dev["total"], dev["scale"], torch.float32).cpu()
+    want = hub_fused.hub_cotangent_plain(g, total, scale, torch.float32)
+    (gb, gc), (wb, wc) = hub_fused._unfold(got, h, d), hub_fused._unfold(want, h, d)
+    assert torch.equal(gb, wb) and torch.isfinite(got).all()
+    torch.testing.assert_close(gc, wc, rtol=1e-5, atol=1e-5 * float(wc.abs().max()))
+    used = torch.zeros_like(got, dtype=torch.bool)
+    for part in hub_fused._unfold(used, h, d):
+        part.fill_(True)
+    assert not got[~used].any()  # zeros elsewhere
+    bf = hub_fused.hub_cotangent(dev["g"], dev["total"], dev["scale"], msg_dtype).cpu()
+    assert bf.dtype == msg_dtype and torch.equal(hub_fused._unfold(bf, h, d)[0], wb.to(msg_dtype))
+    dx, dz = hub_fused.hub_message_grad(dev["dy"], dev["x"], dev["z"])
+    wx, wz = hub_fused.hub_message_grad_plain(dy, x, z)
+    assert torch.equal(dx.cpu(), wx)
+    torch.testing.assert_close(dz.cpu(), wz, rtol=1e-5, atol=1e-5)
+    assert [f.launches for f in (hub_fused.hub_messages, hub_fused.hub_epilogue,
+                                 hub_fused.hub_cotangent, hub_fused.hub_message_grad)] == [
+        counts[0] + 1, counts[1] + 2, counts[2] + 2, counts[3] + 1]
+    with pytest.raises(ValueError, match="one device"):
+        hub_fused.hub_messages(dev["x"], z, msg_dtype)
+    with pytest.raises(ValueError, match="one device"):
+        hub_fused.hub_epilogue(dev["total"], h, d, scale, dev["res"])
 
 
 @pytest.mark.parametrize("gcn_norm", [True, False])
