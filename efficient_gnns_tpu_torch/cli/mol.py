@@ -13,14 +13,18 @@
 n_test, seed=42)``; any other value reads OGB's raw cache under
 ``--data_root`` (``data/molhiv.py``; nothing is downloaded). ``gine`` models
 carry the virtual node (so a ``gine`` run's checkpoint loads as the
-teacher), PNA has 4 towers and the dataset's mean log degree as ``delta``.
+teacher), with OGB ``gin-virtual``'s BatchNorms in its MLP under
+``--virtual_node_norm`` (the teacher takes the same flag), PNA has 4 towers
+and the dataset's mean log degree as ``delta``. ``--max_atoms`` sets the
+batch budget (``MolBatcher``).
 Each run saves its model's ``state_dict`` whenever the validation ROC-AUC
 improves, as ``<out_dir>/mol_ckpt/<expt_name>/<gnn>/seed<seed>.pt``
 (``torch.save``); ``--teacher_path <dir>`` reads ``<dir>/seed<seed>.pt``
 (without it the teacher keeps random weights, as in the JAX CLI). The
 command writes ``<out_dir>/mol-<expt_name>-<tag>.json`` (the JAX CLI's tag;
-args, statistics, per-run train and evaluation seconds) and returns it with
-the per-run losses and AUCs of every epoch.
+args, statistics, and each run's seconds an epoch: the train steps and the
+evaluation of ``MolTrainer.run_epochs``, one host copy an epoch) and returns
+it with the per-run losses and AUCs of every epoch.
 """
 
 from __future__ import annotations
@@ -49,9 +53,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--teacher_hidden", type=int, default=300)
     p.add_argument("--num_layers", type=int, default=2)
     p.add_argument("--teacher_layers", type=int, default=5)
+    p.add_argument("--virtual_node_norm", action="store_true",
+                   help="OGB gin-virtual's two BatchNorms in the virtual node's MLP of a gine "
+                        "model and teacher (off: the JAX module's MLP)")
     p.add_argument("--dropout", type=float, default=0.5)
     p.add_argument("--lr", type=float, default=0.001)
     p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--max_atoms", type=int, default=32,
+                   help="atoms a molecule in the batch budget (batch_size * max_atoms node "
+                        "rows, three edges an atom); a batch past it is padded to its own size")
     p.add_argument("--alpha", type=float, default=0.5)
     p.add_argument("--kd_T", type=float, default=1.0)
     p.add_argument("--beta", type=float, default=0.5)
@@ -123,18 +133,20 @@ def main(argv=None) -> dict:
         seed = args.seed + run
         student = MolGNN(args.gnn, args.hidden_channels, ds.num_tasks, args.num_layers,
                          dropout=args.dropout, virtual_node=(args.gnn == "gine"),
+                         virtual_node_norm=args.virtual_node_norm,
                          pna_delta=ds.mean_log_degree, pna_towers=4, seed=seed, device=device)
         teacher = None
         if cfg.needs_teacher():
             teacher = MolGNN(args.teacher_gnn, args.teacher_hidden, ds.num_tasks,
                              args.teacher_layers, virtual_node=(args.teacher_gnn == "gine"),
+                             virtual_node_norm=args.virtual_node_norm,
                              pna_delta=ds.mean_log_degree, pna_towers=4, seed=seed + 4242,
                              device=device)
             if args.teacher_path:
                 teacher.load_state_dict(load_checkpoint(
                     os.path.join(args.teacher_path, f"seed{seed}.pt"), map_location=device))
         tr = MolTrainer(cfg, ds, student, teacher=teacher, batch_size=args.batch_size,
-                        seed=seed, device=device)
+                        max_atoms=args.max_atoms, seed=seed, device=device)
         if run == 0:
             print(f"batches of {args.batch_size}: {tr.batcher.node_budget} nodes, "
                   f"{tr.batcher.edge_budget} edges; {len(tr.batcher)} train batches",
@@ -142,19 +154,18 @@ def main(argv=None) -> dict:
         best_val, run_secs, run_losses, run_aucs = -1.0, [], [], []
         for epoch in range(1, args.epochs + 1):
             t0 = time.time()
-            m = tr.train_epoch(epoch)
-            t1 = time.time()
-            epoch_aucs = tr.evaluate_all()
-            run_secs.append({"train": t1 - t0, "eval": time.time() - t1})
+            row = tr.run_epochs(epoch, 1)[0]  # one host copy an epoch: the best is saved
+            secs = time.time() - t0
+            loss, epoch_aucs = float(row[0]), tuple(float(a) for a in row[1:4])
+            run_secs.append({"epoch": secs})
             logger.add_result(run, epoch_aucs)
-            run_losses.append(m["loss"])
+            run_losses.append(loss)
             run_aucs.append(epoch_aucs)
             if epoch_aucs[1] > best_val:
                 best_val = epoch_aucs[1]
                 save_checkpoint(checkpoint_path(args.out_dir, args.expt_name, args.gnn, seed),
                                 tr.model.state_dict())
-            print(f"Run {run} Epoch {epoch} loss {m['loss']:.4f} train {t1 - t0:.2f}s "
-                  f"eval {run_secs[-1]['eval']:.2f}s AUC train/val/test "
+            print(f"Run {run} Epoch {epoch} loss {loss:.4f} {secs:.2f}s AUC train/val/test "
                   f"{epoch_aucs[0]:.4f}/{epoch_aucs[1]:.4f}/{epoch_aucs[2]:.4f}", flush=True)
         logger.print_statistics(run)
         seconds[f"run{run}"] = run_secs

@@ -1,5 +1,5 @@
 """ogbg-molhiv (counterpart of ``efficient_gnns_tpu/data/molhiv.py``): the
-synthetic generator, the raw-cache loader, the static-shape molecule batcher
+synthetic generator, the raw-cache loader, the padded molecule batcher
 and ROC-AUC.
 
 ``synthetic_molhiv_dataset`` draws from NumPy's ``default_rng(seed)`` in the
@@ -18,7 +18,8 @@ download):
 
 and takes the edge rows as they are (both directions), as the JAX loader
 does. :class:`MolBatcher` packs ``batch_size`` molecules into one padded
-:class:`BatchedGraphs` with the JAX batcher's budgets and order.
+:class:`BatchedGraphs` with the JAX batcher's budgets and order, and pads a
+batch past the budgets to its own size where the JAX batcher raises.
 """
 
 from __future__ import annotations
@@ -128,45 +129,87 @@ class MolBatch(NamedTuple):
                         self.labels.to(device))
 
 
+def _round_up(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
 class MolBatcher:
-    """Yields fixed-shape packed batches (:class:`MolBatch`, on the CPU) of
-    ``batch_size`` molecules: ``batch_size * max_atoms`` nodes rounded up to
-    128 and three edges an atom rounded up to 1,024 (the JAX budgets; a batch
-    past them raises ``ValueError`` in ``pack_graphs``)."""
+    """Yields packed batches (:class:`MolBatch`, on the CPU) of
+    ``batch_size`` molecules, padded to the JAX budgets: ``batch_size *
+    max_atoms`` nodes rounded up to 128 and three edges an atom rounded up to
+    1,024. A batch that fits them is packed as the JAX batcher packs it. A
+    batch past a budget (real molecules reach 222 atoms), where the JAX
+    batcher raises, is padded in that dimension to its own count rounded up
+    to 128 nodes or 1,024 edges instead (:meth:`pads`); every other batch
+    keeps the budget's shape."""
 
     def __init__(self, mols: List[Molecule], batch_size: int, max_atoms: int,
                  shuffle: bool = True):
         self.mols = mols
         self.batch_size = batch_size
-        self.node_budget = ((batch_size * max_atoms + 127) // 128) * 128
+        self.node_budget = _round_up(batch_size * max_atoms, 128)
         # chain + extra bonds, bidirected: < 3 edges per atom on average
-        self.edge_budget = ((batch_size * max_atoms * 3 + 1023) // 1024) * 1024
+        self.edge_budget = _round_up(batch_size * max_atoms * 3, 1024)
         self.shuffle = shuffle
 
     def __len__(self):
         return -(-len(self.mols) // self.batch_size)
 
-    def epoch(self, seed: int) -> Iterator[MolBatch]:
-        """The batches of one epoch, in ``default_rng(seed).permutation``
-        order when shuffling."""
+    def pads(self, nodes: int, edges: int) -> tuple:
+        """``(node rows, edge rows)`` of a batch of ``nodes`` atoms and
+        ``edges`` directed bonds: each budget, or past it the count rounded up
+        to 128 nodes or 1,024 edges."""
+        return (self.node_budget if nodes <= self.node_budget else _round_up(nodes, 128),
+                self.edge_budget if edges <= self.edge_budget else _round_up(edges, 1024))
+
+    def chunks(self, seed: int) -> List[np.ndarray]:
+        """The molecule indices of each batch of one epoch, in
+        ``default_rng(seed).permutation`` order when shuffling."""
         order = np.arange(len(self.mols))
         if self.shuffle:
             order = np.random.default_rng(seed).permutation(order)
+        return [order[i: i + self.batch_size] for i in range(0, len(order), self.batch_size)]
+
+    def pack(self, idx: np.ndarray) -> MolBatch:
+        """The molecules ``idx`` as one padded batch on the CPU."""
+        chunk = [self.mols[j] for j in idx]
         b = self.batch_size
-        for i in range(0, len(order), b):
-            chunk = [self.mols[j] for j in order[i: i + b]]
-            batch, _, bonds = pack_graphs(
-                [(m.senders, m.receivers, m.num_nodes) for m in chunk],
-                pad_nodes_to=self.node_budget,
-                pad_edges_to=self.edge_budget,
-                pad_graphs_to=b,
-                edge_payloads=[m.bond_feats for m in chunk],
-            )
-            atoms = pack_node_features([m.atom_feats for m in chunk], self.node_budget)
-            labels = np.zeros(b, np.float32)
-            labels[: len(chunk)] = [m.label for m in chunk]
-            yield MolBatch(batch, torch.from_numpy(atoms), torch.from_numpy(bonds),
-                           torch.from_numpy(labels))
+        pad_nodes, pad_edges = self.pads(sum(m.num_nodes for m in chunk),
+                                         sum(len(m.senders) for m in chunk))
+        batch, _, bonds = pack_graphs(
+            [(m.senders, m.receivers, m.num_nodes) for m in chunk],
+            pad_nodes_to=pad_nodes,
+            pad_edges_to=pad_edges,
+            pad_graphs_to=b,
+            edge_payloads=[m.bond_feats for m in chunk],
+        )
+        atoms = pack_node_features([m.atom_feats for m in chunk], pad_nodes)
+        labels = np.zeros(b, np.float32)
+        labels[: len(chunk)] = [m.label for m in chunk]
+        return MolBatch(batch, torch.from_numpy(atoms), torch.from_numpy(bonds),
+                        torch.from_numpy(labels))
+
+    def epoch(self, seed: int) -> Iterator[MolBatch]:
+        """The batches of one epoch (:meth:`chunks`, each packed)."""
+        return (self.pack(idx) for idx in self.chunks(seed))
+
+
+def roc_auc_device(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """:func:`roc_auc` on the device, without a host copy: a float64 scalar
+    tensor, NaN without both classes. Each score's rank is the mean of its
+    tie group's (``searchsorted`` on the sorted scores from both sides), and
+    the statistic is :func:`roc_auc`'s, operation for operation in float64,
+    so both give the same bits."""
+    scores = scores.reshape(-1)
+    labels = labels.reshape(-1).to(torch.float64)
+    ordered = torch.sort(scores).values
+    below = torch.searchsorted(ordered, scores, right=False).to(torch.float64)
+    upto = torch.searchsorted(ordered, scores, right=True).to(torch.float64)
+    ranks = 0.5 * ((below + 1) + upto)
+    pos = labels == 1
+    n_pos, n_neg = pos.sum().to(torch.float64), (labels == 0).sum().to(torch.float64)
+    r_pos = torch.where(pos, ranks, 0.0).sum()
+    return (r_pos - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg)
 
 
 def roc_auc(scores: np.ndarray, labels: np.ndarray) -> float:

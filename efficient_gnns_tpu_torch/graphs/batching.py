@@ -2,9 +2,9 @@
 ``efficient_gnns_tpu/graphs/batching.py``).
 
 A batch of molecules becomes ONE padded :class:`Graph` whose node ids are
-offset per graph, with static node, edge and graph budgets, so every batch
-of a run has the same shapes. NumPy on the host; the result lies on the CPU
-and moves with ``BatchedGraphs.to``.
+offset per graph, padded to the node, edge and graph counts the caller gives
+(``data/molhiv.py::MolBatcher``'s budgets). NumPy on the host; the result
+lies on the CPU and moves with ``BatchedGraphs.to``.
 """
 
 from __future__ import annotations

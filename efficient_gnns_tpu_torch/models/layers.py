@@ -37,36 +37,54 @@ class MaskedBatchNorm(nn.Module):
     before the mean and variance (``parallel.collectives.all_reduce_stat``,
     whose backward sums the ranks' cotangents), so every rank normalises
     with the statistics of all rows and updates its running statistics
-    identically."""
+    identically.
+
+    ``two_pass`` takes the variance as the mean squared deviation from the
+    mean (two sums over the rows) instead: the one-pass ``E[x^2] - E[x]^2``
+    loses ``mean^2 / var`` ulps of float32 to cancellation, which columns
+    whose mean dwarfs their spread (a virtual node's pooled sums) turn into
+    errors of 1e-4 in the output, where ``torch.nn.BatchNorm1d`` keeps
+    float32 rounding. Not with a ``group``."""
 
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5,
-                 device="cuda", group=None):
+                 device="cuda", group=None, two_pass: bool = False):
         super().__init__()
+        if two_pass and group is not None:
+            raise ValueError("MaskedBatchNorm: two_pass statistics over a group")
         self.momentum, self.epsilon, self.group = momentum, epsilon, group
+        self.two_pass = two_pass
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        if self.training:
-            xf = x.float()
-            if mask is not None:
-                m = mask.float()[:, None]
-                count = m.sum()
-                s1 = (xf * m).sum(0)
-                s2 = (xf * xf * m).sum(0)
-            else:
-                count = torch.tensor(float(x.shape[0]), device=x.device)
-                s1 = xf.sum(0)
-                s2 = (xf * xf).sum(0)
-            if self.group is not None:
-                f = s1.shape[0]
-                stats = all_reduce_stat(torch.cat([count.reshape(1), s1, s2]), self.group)
-                count, s1, s2 = stats[0], stats[1:f + 1], stats[f + 1:]
+    def _stats(self, x: torch.Tensor, mask: Optional[torch.Tensor]):
+        """The mean and the biased variance over the rows (those of
+        ``mask``), summed over ``group``."""
+        xf = x.float()
+        if mask is not None:
+            m = mask.float()[:, None]
+            count, rows = m.sum(), (lambda t: t * m)
+        else:
+            count, rows = torch.tensor(float(x.shape[0]), device=x.device), (lambda t: t)
+        s1 = rows(xf).sum(0)
+        if self.two_pass:
             count = count.clamp_min(1.0)
             mean = s1 / count
-            var = (s2 / count - mean * mean).clamp_min(0.0)
+            dev = xf - mean
+            return mean, rows(dev * dev).sum(0) / count
+        s2 = rows(xf * xf).sum(0)
+        if self.group is not None:
+            f = s1.shape[0]
+            stats = all_reduce_stat(torch.cat([count.reshape(1), s1, s2]), self.group)
+            count, s1, s2 = stats[0], stats[1:f + 1], stats[f + 1:]
+        count = count.clamp_min(1.0)
+        mean = s1 / count
+        return mean, (s2 / count - mean * mean).clamp_min(0.0)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        if self.training:
+            mean, var = self._stats(x, mask)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
                 self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)

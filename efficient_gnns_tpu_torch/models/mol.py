@@ -223,6 +223,13 @@ class MolGNN(nn.Module):
     per graph, added to its nodes before each conv and updated after each
     but the last by ``relu(vn_lins[2i+1](relu(vn_lins[2i](sum pool +
     state))))`` with dropout); the mean pool and the ``graph_pred`` Dense.
+    ``virtual_node_norm`` gives OGB's form (``GNN_node_Virtualnode``): two
+    BatchNorms in the virtual node's MLP (``Dense(2F) -> BN -> ReLU ->
+    Dense(F) -> BN -> ReLU``, as ``vn_bns[2i]`` and ``vn_bns[2i+1]``), their
+    statistics over the real graphs of a batch (``graph_mask``) and taken in
+    two passes (``MaskedBatchNorm(two_pass=True)``): the pooled sums' mean
+    dwarfs their spread, and the JAX layer's one-pass variance cancels
+    there. Off, the model is the JAX module's.
     ``forward`` returns ``(logits [num_graphs, num_tasks], graph_feat
     [num_graphs, hidden])``, the pooled embedding being the feature that
     distillation compares.
@@ -230,7 +237,8 @@ class MolGNN(nn.Module):
 
     def __init__(self, conv: str, hidden: int, num_tasks: int, num_layers: int = 5,
                  dropout: float = 0.5, virtual_node: bool = False, residual: bool = False,
-                 pna_delta: float = 1.0, pna_towers: int = 5, *, seed: int = 0, device="cuda"):
+                 pna_delta: float = 1.0, pna_towers: int = 5, virtual_node_norm: bool = False,
+                 *, seed: int = 0, device="cuda"):
         super().__init__()
         if conv not in ("gine", "gin", "gcn", "pna"):
             raise ValueError(f"MolGNN: conv must be gine, gin, gcn or pna, got {conv!r}")
@@ -253,16 +261,25 @@ class MolGNN(nn.Module):
                                  for _ in range(num_layers))
         self.virtualnode_emb = None
         self.vn_lins = nn.ModuleList()
+        self.vn_bns = nn.ModuleList()
         if virtual_node:
             self.virtualnode_emb = nn.Parameter(torch.zeros(hidden, device=device))
             for _ in range(num_layers - 1):
                 self.vn_lins.append(Dense(hidden, 2 * hidden, **kw))
                 self.vn_lins.append(Dense(2 * hidden, hidden, **kw))
+                if virtual_node_norm:
+                    self.vn_bns.append(MaskedBatchNorm(2 * hidden, device=device, two_pass=True))
+                    self.vn_bns.append(MaskedBatchNorm(hidden, device=device, two_pass=True))
         self.graph_pred = Dense(hidden, num_tasks, **kw)
 
     @property
     def feat_dim(self) -> int:
         return self.hidden
+
+    def _vn_norm(self, j: int, v: torch.Tensor, batch: BatchedGraphs) -> torch.Tensor:
+        """The virtual node MLP's ``j``-th BatchNorm over the real graphs, or
+        ``v`` itself without ``virtual_node_norm``."""
+        return self.vn_bns[j](v, batch.graph_mask) if self.vn_bns else v
 
     def forward(self, batch: BatchedGraphs, atoms: torch.Tensor, bonds: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
@@ -287,8 +304,8 @@ class MolGNN(nn.Module):
                 h = h + h_in
             if self.virtual_node and i < last:
                 pooled = global_sum_pool(batch, h_in) + vstate
-                v = torch.relu(self.vn_lins[2 * i](pooled))
-                v = torch.relu(self.vn_lins[2 * i + 1](v))
+                v = torch.relu(self._vn_norm(2 * i, self.vn_lins[2 * i](pooled), batch))
+                v = torch.relu(self._vn_norm(2 * i + 1, self.vn_lins[2 * i + 1](v), batch))
                 vstate = dropout(v, self.dropout, generator) if self.training else v
         graph_feat = global_mean_pool(batch, h)
         return self.graph_pred(graph_feat), graph_feat

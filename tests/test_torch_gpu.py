@@ -585,6 +585,51 @@ def test_mol_trainer_epoch_on_card_matches_cpu(cuda_device, conv, mode, kd_and_a
     np.testing.assert_allclose(results[str(cuda_device)][2:], results["cpu"][2:], atol=0.05)
 
 
+def _mol_chain(n, rng):
+    from efficient_gnns_tpu_torch.data.molhiv import Molecule
+
+    s = np.arange(1, n)
+    senders, receivers = np.concatenate([s, s - 1]), np.concatenate([s - 1, s])
+    return Molecule(senders, receivers, n, rng.integers(0, 5, (n, 9)).astype(np.int32),
+                    rng.integers(0, 2, (2 * n - 2, 3)).astype(np.int32), 1.0)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+def test_mol_trainer_graphs_on_card_match_its_eager_steps(cuda_device, dropout):
+    """Three epochs with the step and evaluation graphs against the same
+    epochs stepped eagerly (a trainer told not to graph): the replays run
+    the eager kernels on the same inputs and draw dropout from the same
+    generator state, so the losses, ROC-AUCs and parameters agree (to
+    1e-6: a matrix product may take another algorithm inside a capture). A 150-atom molecule gives a batch
+    of its own signature (past the node budget, and a split pool row). The
+    last trainer captures while the first, gone but not yet collected (it
+    sits in a reference cycle), still holds its graphs."""
+    from efficient_gnns_tpu_torch.data import synthetic_molhiv_dataset
+    from efficient_gnns_tpu_torch.models import MolGNN
+    from efficient_gnns_tpu_torch.train import DistillConfig, MolTrainer
+
+    ds = synthetic_molhiv_dataset(n_train=60, n_valid=16, n_test=16, seed=3)
+    ds = ds._replace(train=ds.train + [_mol_chain(150, np.random.default_rng(0))])
+    got = []
+    for graphs in (True, False, True):
+        model = MolGNN("gine", 32, 1, 3, dropout=dropout, virtual_node=True,
+                       virtual_node_norm=True, seed=1, device=cuda_device)
+        tr = MolTrainer(DistillConfig(lr=0.003), ds, model, batch_size=8, max_atoms=24,
+                        seed=0, device=cuda_device)
+        assert tr.graphed
+        tr.graphed = graphs  # the eager steps of the same trainer
+        rows = tr.run_epochs(0, 3)
+        got.append((rows, [p.detach().clone() for p in tr.modules.parameters()]))
+        if graphs:
+            assert len(tr._step_graphs) >= 2 and tr._eval_graph is not None
+            assert tr._eager_steps == 2
+        del tr, model
+    for rows, params in (got[0], got[2]):
+        np.testing.assert_allclose(rows, got[1][0], rtol=1e-6, atol=1e-6)
+        for a, b in zip(params, got[1][1]):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
 def test_mol_batch_moves_to_the_card(rng, cuda_device):
     from efficient_gnns_tpu_torch.data import MolBatcher, synthetic_molhiv_dataset
     from efficient_gnns_tpu_torch.graphs.row_split import is_recorded_pair

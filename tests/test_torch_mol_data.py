@@ -24,6 +24,8 @@ from efficient_gnns_tpu_torch.graphs import (
     pack_node_features,
 )
 from efficient_gnns_tpu_torch.graphs.row_split import is_recorded_pair
+from efficient_gnns_tpu_torch.models.mol import global_sum_pool
+from efficient_gnns_tpu_torch.ops.sorted_segment import csr_segment_sum_sorted
 
 DATA = dict(n_train=40, n_valid=9, n_test=11, seed=3)
 GRAPH_FIELDS = ("senders", "receivers", "t_senders", "t_receivers", "csc_perm",
@@ -142,16 +144,82 @@ def test_batcher_matches_jax(shuffle, seeds):
         assert got[-1].batch.n_graph == 8  # 40 molecules: the last batch is padded
 
 
+def _pooled(mb):
+    """Each real molecule's sums of its atom features and of the bond
+    features into its atoms: ``[molecules, 9 + 3]``, through the batch's CSR
+    (the sums a conv and a pool read)."""
+    b = mb.batch
+    g = b.graph
+    into = csr_segment_sum_sorted(mb.bonds.float(), g.receivers, g.row_offsets, g.row_split,
+                                  b.ident)
+    rows = torch.cat([mb.atoms.float(), into], 1)
+    return global_sum_pool(b, rows)[: b.n_graph]
+
+
+def _alone(m):
+    """``m`` packed by itself, padded to its own size."""
+    batch, _, bonds = pack_graphs([(m.senders, m.receivers, m.num_nodes)],
+                                  pad_nodes_to=m.num_nodes, pad_edges_to=len(m.senders),
+                                  edge_payloads=[m.bond_feats])
+    atoms = pack_node_features([m.atom_feats], m.num_nodes)
+    return mol.MolBatch(batch, torch.from_numpy(atoms), torch.from_numpy(bonds),
+                        torch.zeros(1))
+
+
+def _assert_packs_each_molecule(mols, batch_size, max_atoms):
+    tbat = mol.MolBatcher(mols, batch_size, max_atoms, shuffle=False)
+    [mb] = list(tbat.epoch(0))
+    nodes, edges = sum(m.num_nodes for m in mols), sum(len(m.senders) for m in mols)
+    want_rows = (tbat.node_budget if nodes <= tbat.node_budget else -(-nodes // 128) * 128,
+                 tbat.edge_budget if edges <= tbat.edge_budget else -(-edges // 1024) * 1024)
+    assert (mb.batch.graph.num_nodes, mb.batch.graph.num_edges_padded) == want_rows
+    assert mb.atoms.shape[0] == want_rows[0] and mb.bonds.shape[0] == want_rows[1]
+    assert int(mb.batch.graph_offsets[-1]) == nodes and mb.batch.n_graph == len(mols)
+    want = torch.cat([_pooled(_alone(m)) for m in mols])
+    np.testing.assert_array_equal(_pooled(mb).numpy(), want.numpy())
+    np.testing.assert_array_equal(mb.labels[: len(mols)].numpy(), [m.label for m in mols])
+    return want_rows
+
+
 def test_batch_budget_overflow_raises_in_both():
     # 32 molecules of real ogbg-molhiv size (25.5 atoms on average) overflow
     # the 1,024-node budget that MolTrainer's default max_atoms=32 gives a
-    # batch of 32: both packages raise
+    # batch of 32: the JAX batcher raises, the port's pads the batch to its
+    # own atoms rounded up to 128 and packs every molecule as it would alone
     kw = dict(n_train=32, n_valid=1, n_test=1, min_atoms=25, max_atoms=60, seed=4)
     jds, tds = jax_mol.synthetic_molhiv_dataset(**kw), mol.synthetic_molhiv_dataset(**kw)
     assert sum(m.num_nodes for m in tds.train) > 1024
-    for batcher in (jax_mol.MolBatcher(jds.train, 32, 32), mol.MolBatcher(tds.train, 32, 32)):
-        with pytest.raises(ValueError, match="pad_nodes_to=1024"):
-            next(batcher.epoch(0))
+    with pytest.raises(ValueError, match="pad_nodes_to=1024"):
+        next(jax_mol.MolBatcher(jds.train, 32, 32).epoch(0))
+    rows = _assert_packs_each_molecule(tds.train, 32, 32)
+    assert rows[0] > 1024 and rows[0] % 128 == 0
+
+
+def test_batcher_packs_two_molecules_of_200_atoms():
+    # the largest molhiv molecules (222 atoms): two of 200 in one batch of 8
+    # pass both budgets (8 x 32 = 256 nodes, 768 -> 1,024 edges)
+    big = dict(n_train=2, n_valid=1, n_test=1, min_atoms=200, max_atoms=200, seed=5)
+    small = dict(n_train=6, n_valid=1, n_test=1, min_atoms=10, max_atoms=30, seed=6)
+    tmols = mol.synthetic_molhiv_dataset(**big).train + mol.synthetic_molhiv_dataset(**small).train
+    jmols = (jax_mol.synthetic_molhiv_dataset(**big).train
+             + jax_mol.synthetic_molhiv_dataset(**small).train)
+    with pytest.raises(ValueError, match="pad_nodes_to=256"):
+        next(jax_mol.MolBatcher(jmols, 8, 32, shuffle=False).epoch(0))
+    nodes, edges = _assert_packs_each_molecule(tmols, 8, 32)
+    assert nodes == -(-sum(m.num_nodes for m in tmols) // 128) * 128 and nodes >= 512
+    assert edges > 1024 and edges % 1024 == 0
+
+
+def test_batcher_packs_a_fitting_batch_as_jax():
+    kw = dict(n_train=16, n_valid=1, n_test=1, seed=7)
+    jds, tds = jax_mol.synthetic_molhiv_dataset(**kw), mol.synthetic_molhiv_dataset(**kw)
+    [(jb, atoms, bonds, labels)] = list(jax_mol.MolBatcher(jds.train, 16, 24).epoch(3))
+    [tb] = list(mol.MolBatcher(tds.train, 16, 24).epoch(3))
+    _assert_batch_equal(jb, tb.batch)
+    np.testing.assert_array_equal(tb.atoms.numpy(), atoms)
+    np.testing.assert_array_equal(tb.bonds.numpy(), bonds)
+    np.testing.assert_array_equal(tb.labels.numpy(), labels)
+    assert _assert_packs_each_molecule(tds.train, 16, 24) == (384, 2048)  # the budgets
 
 
 def test_roc_auc_matches_jax():

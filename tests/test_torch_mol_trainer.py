@@ -144,7 +144,7 @@ def test_cli_trains_a_teacher_and_students_from_its_checkpoint(tmp_path):
         written = json.load(f)
     assert written["statistics"] == summary["statistics"]
     assert len(summary["losses"]["run0"]) == len(summary["aucs"]["run0"]) == 2
-    assert set(summary["seconds"]["run0"][0]) == {"train", "eval"}
+    assert set(summary["seconds"]["run0"][0]) == {"epoch"}
 
     student_args = ("--teacher_path", str(tmp_path / "mol_ckpt" / "t" / "gine"),
                     "--teacher_hidden", "24", "--teacher_layers", "2")
@@ -165,6 +165,18 @@ def test_cli_trains_a_teacher_and_students_from_its_checkpoint(tmp_path):
     np.testing.assert_allclose(tr.train_epoch(1)["loss"], kd["losses"]["run0"][0], rtol=1e-6)
     with pytest.raises(ValueError, match="--platform"):
         _run(tmp_path, "--platform", "cpu")
+
+
+def test_cli_trains_ogb_gin_virtual_at_a_batch_budget_of_its_own(tmp_path, capsys):
+    summary = _run(tmp_path, "--gnn", "gine", "--hidden_channels", "16", "--num_layers", "2",
+                   "--virtual_node_norm", "--max_atoms", "40", "--expt_name", "v")
+    assert "batches of 32: 1280 nodes, 4096 edges" in capsys.readouterr().out
+    state = load_checkpoint(cli.checkpoint_path(str(tmp_path), "v", "gine", 0))
+    assert {k for k in state if k.startswith("vn_bns.")} >= {
+        "vn_bns.0.scale", "vn_bns.1.running_var"}
+    with open(tmp_path / "mol-v-gine-supervised.json") as f:
+        assert json.load(f)["args"]["max_atoms"] == 40
+    assert np.isfinite(summary["losses"]["run0"]).all()
 
 
 def test_cli_tags_match_jax():

@@ -239,3 +239,47 @@ def test_build_graph_emits_its_span_and_three_children():
     assert children["graph.sort"].t1_ns <= children["graph.hub_partition"].t0_ns \
         <= children["graph.row_split"].t0_ns
     assert root.parent is None and len(records) == 4
+
+
+MOL_STEP_PHASES = ("trainer.forward", "trainer.criterion", "trainer.backward",
+                   "trainer.optimizer")
+
+
+def _mol_trainer():
+    from efficient_gnns_tpu_torch.data import molhiv
+    from efficient_gnns_tpu_torch.models.mol import MolGNN
+    from efficient_gnns_tpu_torch.train import MolTrainer
+
+    ds = molhiv.synthetic_molhiv_dataset(n_train=128, n_valid=4, n_test=4, min_atoms=4,
+                                         max_atoms=8, seed=1)
+    model = MolGNN("gine", 8, 1, 2, dropout=0.5, virtual_node=True, virtual_node_norm=True,
+                   seed=0, device="cpu")
+    return MolTrainer(DistillConfig(lr=0.001), ds, model, batch_size=2, max_atoms=8, seed=0,
+                      device="cpu")
+
+
+def test_mol_trainer_spans_nest_and_an_epoch_holds_64_steps():
+    off = _mol_trainer().run_epochs(0, 1)
+    tr = _mol_trainer()
+    tracing.enable()
+    on = tr.run_epochs(0, 1)
+    np.testing.assert_array_equal(on, off)  # the recorder changes no number
+    records = tracing.records()
+    names = _names(r for r in records if not r.name.startswith("graph."))
+    steps = dict.fromkeys(("trainer.step", "mol.pack", "mol.upload") + MOL_STEP_PHASES, 64)
+    assert names == dict(steps, **{"trainer.epoch": 1, "trainer.eval": 1,
+                                   "trainer.readback": 1})
+    parents = _parents(records)
+    # packing builds each batch's graph: the train batches' under mol.pack,
+    # the evaluation's (packed once, at the first evaluation) under trainer.eval
+    assert parents[("graph.build", "mol.pack")] == 64
+    assert parents[("graph.build", "trainer.eval")] == 64 + 2 + 2
+    for name in ("mol.pack", "mol.upload", "trainer.step", "trainer.eval"):
+        assert parents[(name, "trainer.epoch")] == _names(records)[name], name
+    for name in MOL_STEP_PHASES:
+        assert parents[(name, "trainer.step")] == 64, name
+    assert parents[("trainer.epoch", None)] == 1 and parents[("trainer.readback", None)] == 1
+    # each batch is packed, then uploaded, then stepped
+    order = [r.name for r in sorted(records, key=lambda r: r.t0_ns)
+             if r.name in ("mol.pack", "mol.upload", "trainer.step")]
+    assert order == ["mol.pack", "mol.upload", "trainer.step"] * 64
