@@ -235,6 +235,17 @@ EPOCHS = 10
 # the forward and backward of each projection head's GCNConv.
 K1_PER_EPOCH = {("gcn", "supervised"): 6, ("gcn", "kd"): 6, ("gcn", "nce"): 6,
                 ("sage", "supervised"): 5, ("gcn", "gcd"): 10}
+# MaskedBatchNorm kernels of one student epoch (every BatchNorm here has more
+# than 2,048 rows: the two-kernel path): the model's one BatchNorm a train
+# forward, a backward and an eval forward; nce and gcd add the two heads'
+# BatchNorms (91,445 train rows, or the whole graph), a forward and a backward each.
+BN_PER_EPOCH = {"supervised": (1, 1), "kd": (1, 1), "nce": (3, 1), "gcd": (3, 1)}
+
+
+def _bn_expected(train_fwd, eval_fwd, epochs):
+    return {"bn_fused": 0, "bn_partials": train_fwd * epochs, "bn_apply": train_fwd * epochs,
+            "bn_eval": eval_fwd * epochs, "bn_grad_fused": 0,
+            "bn_grad_partials": train_fwd * epochs, "bn_grad_apply": train_fwd * epochs}
 # experiments/arxiv_hard.sh step 1 at arxiv shape: the flagship teacher
 # (--no-attn-dst, the hub attention path at this size), and beside it the
 # same teacher with attn-dst on (the edge-softmax path, K2 and K4-K7)
@@ -252,14 +263,20 @@ TEACHER_EPOCHS = 3
 # backward (K1), nothing else.
 # Around each K1 launch the hub layer's fused passes: the messages and the
 # epilogue a forward, the cotangent and the message gradient a backward.
+# The two MaskedBatchNorms (N = 169,343: the two-kernel path): 2 train
+# forwards (the step and its label-reuse run) and 2 eval forwards each, and
+# one backward each.
+TEACHER_BN_LAUNCHES = {"bn_fused": 0, "bn_partials": 4, "bn_apply": 4, "bn_eval": 4,
+                       "bn_grad_fused": 0, "bn_grad_partials": 2, "bn_grad_apply": 2}
 TEACHER_LAUNCHES = {"K1": 12 + 3, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0,
                     "hub_messages": 12, "hub_epilogue": 12, "hub_cotangent": 3,
-                    "hub_message_grad": 3}
+                    "hub_message_grad": 3, **TEACHER_BN_LAUNCHES}
 # attn-dst: forward K2 1, K5 1, K6 1, K7 3 (er, max, 1/sum); backward K2 1,
 # K4 1, K5 3 (softmax VJP, der, del), K7 1
 TEACHER_ATTN_DST_LAUNCHES = {"K1": 0, "K2": 12 + 3, "K3": 0, "K4": 3, "K5": 12 + 3 * 3,
                              "K6": 12, "K7": 12 * 3 + 3, "hub_messages": 0,
-                             "hub_epilogue": 0, "hub_cotangent": 0, "hub_message_grad": 0}
+                             "hub_epilogue": 0, "hub_cotangent": 0, "hub_message_grad": 0,
+                             **TEACHER_BN_LAUNCHES}
 HEADS = ((3, 250), (1, 40))  # the teacher's hidden layers and its last layer
 # experiments/all_workloads.sh:11-13 (the hard task) at the reference's full
 # SIGN width (arxiv_dgl/sign.py defaults), cut in time only: 10 epochs, 1 run
@@ -292,6 +309,14 @@ def _hub_counters():
 
     return {"hub_messages": H.hub_messages, "hub_epilogue": H.hub_epilogue,
             "hub_cotangent": H.hub_cotangent, "hub_message_grad": H.hub_message_grad}
+
+
+def _bn_counters():
+    """MaskedBatchNorm's kernels (``ops/cuda/masked_bn.py``) by name: each
+    counts its own launches."""
+    from efficient_gnns_tpu_torch.ops.cuda import masked_bn as M
+
+    return {k.__name__: k for k in M.KERNELS}
 
 
 def _time_ms(fn, reps=None, budget_ms=1500.0):
@@ -535,21 +560,28 @@ def _student(expt, gnn, training, extra=()):
                     "--epochs", str(EPOCHS), "--runs", "1", "--log_steps", str(EPOCHS),
                     "--epoch_chunk", str(EPOCHS), "--device", DEVICE,
                     "--out_dir", OUT_DIR, "--expt_name", expt]
-    csr_segment_sum.launches = 0
+    bn = _bn_counters()
+    for c in (csr_segment_sum, *bn.values()):
+        c.launches = 0
     summary = arxiv.main(argv)
     n = csr_segment_sum.launches
+    bn_launches = {k: c.launches for k, c in bn.items()}
     with open(os.path.join(OUT_DIR, expt, f"{gnn}-{training}", "seed0",
                            "metrics.jsonl")) as f:
         losses = [json.loads(line)["loss/train"] for line in f][-EPOCHS:]
     expected = K1_PER_EPOCH[gnn, training] * EPOCHS
+    bn_expected = _bn_expected(*BN_PER_EPOCH[training], EPOCHS)
     tag = f"{expt} {gnn} {training}"
     print(f"student {tag}: K1 launches={n} (expected {expected}) "
+          f"BatchNorm launches {bn_launches} (expected {bn_expected}) "
           f"mean epoch (train step + eval) "
           f"{summary['runs'][0]['seconds'] / EPOCHS * 1e3:.1f} ms "
           f"losses {[round(v, 4) for v in losses]}", flush=True)
     failures = []
     if n != expected:
         failures.append(f"{tag}: {n} K1 launches")
+    if bn_launches != bn_expected:
+        failures.append(f"{tag}: BatchNorm launches {bn_launches}")
     if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
         failures.append(f"{tag}: losses not finite and falling")
     return n, failures
@@ -1434,6 +1466,107 @@ def phase_hub_fused(graph):
     return records, failures
 
 
+# MaskedBatchNorm at the cells' shapes: (rows, features, rows outside the mask)
+BN_SHAPES = ((1280, 600, 460), (1280, 300, 460), (32, 600, 9), (32, 300, 9),
+             (169343, 750, 0), (169343, 256, 0), (91445, 256, None))
+
+
+def phase_masked_bn():
+    """MaskedBatchNorm + ReLU's kernels (``ops/cuda/masked_bn.py``) at the
+    cells' shapes (the molhiv batch's GIN-E MLP and post-conv BatchNorms
+    with padding rows, its virtual node's over padded graphs, the teacher's
+    and the GCN's [N, F], a head's train rows without a mask): the training
+    forward, its backward and the eval forward, each against the plain
+    chain (one-pass statistics, as the seed ran), with max |kernel - plain|;
+    device times beside the byte bound (x and y forward, dy, x and dx
+    backward). Returns (records, failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.ops.cuda import masked_bn as M
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    src = "efficient_gnns_tpu_torch/ops/cuda/csrc/masked_bn.cu"
+    records, failures = [], []
+    for n, f, pad in BN_SHAPES:
+        x = torch.randn(n, f, generator=gen, device=DEVICE) * 2 + 1
+        dy = torch.randn(n, f, generator=gen, device=DEVICE)
+        mask = None
+        if pad is not None:
+            mask = torch.ones(n, dtype=torch.bool, device=DEVICE)
+            mask[torch.randperm(n, generator=gen, device=DEVICE)[:pad]] = False
+        scale = 1 + 0.1 * torch.randn(f, generator=gen, device=DEVICE)
+        bias = 0.1 * torch.randn(f, generator=gen, device=DEVICE)
+        rm, rv = torch.zeros(f, device=DEVICE), torch.ones(f, device=DEVICE)
+        small = n <= M.SMALL_ROWS
+        kw = dict(momentum=0.9, epsilon=1e-5, relu=True)
+
+        def fwd():
+            if small:
+                return M.bn_fused(x, mask, scale, bias, rm, rv, 0.9, 1e-5, True)
+            return M.bn_apply(x, M.bn_partials(x, mask), scale, bias, rm, rv, 0.9, 1e-5, True)
+
+        y, mean, rstd = fwd()
+        args = (dy, x, mask, mean, rstd, scale, bias, True, False)
+
+        def bwd():
+            if small:
+                return M.bn_grad_fused(*args)
+            return M.bn_grad_apply(dy, x, mask, M.bn_grad_partials(*args), *args[3:])
+
+        def evl():
+            return M.bn_eval(x, scale, bias, rm, rv, 1e-5, True)
+
+        def plain(training):
+            return M.masked_batch_norm_plain(x, mask, scale, bias, rm.clone(), rv.clone(),
+                                             training=training, **kw)
+
+        xr = x.clone().requires_grad_(True)
+        sc, bi = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+
+        def plain_grads(relu_mask=None):
+            out = M.masked_batch_norm_plain(xr, mask, sc, bi, rm.clone(), rv.clone(),
+                                            training=True, momentum=0.9, epsilon=1e-5,
+                                            relu=relu_mask is None)
+            if relu_mask is not None:
+                out = out * relu_mask
+            return torch.autograd.grad(out, (xr, sc, bi), dy)
+
+        dx = bwd()[0]
+        # the plain chain's gradient through the kernel's ReLU mask: a z within
+        # rounding of 0 on the other side would move its element by dy * scale * rstd
+        err = {"fwd": float((y - plain(True)).abs().max()),
+               "bwd": float((dx - plain_grads((y > 0).float())[0]).abs().max()),
+               "eval": float((evl()[0] - plain(False)).abs().max())}
+        timer = _device_ms if small else _time_ms
+        big = n * f * 4
+        cases = {"fwd": (fwd, lambda: plain(True), 2 * big + n),
+                 "bwd": (bwd, plain_grads, 3 * big + n),
+                 "eval": (evl, lambda: plain(False), 2 * big)}
+        for what, (kernel, ref, n_bytes) in cases.items():
+            ms, plain_ms = timer(kernel), timer(ref)
+            bound_ms, bound_by = _bound(n_bytes, 0)
+            key = {"fwd": "bn_fused" if small else "bn_apply",
+                   "bwd": "bn_grad_fused" if small else "bn_grad_apply", "eval": "bn_eval"}[what]
+            tag = f"masked_bn {what} N={n} F={f} {'mask' if mask is not None else 'no mask'}"
+            records.append({
+                "name": tag, "route": "cuda", "source": src, "launch_key": key,
+                "on_main_path": not small,  # the mol steps replay graphs: not counted here
+                "replaces": "none: models/layers.py::MaskedBatchNorm + ReLU's chain of "
+                            "PyTorch passes (the JAX layer's XLA work)",
+                "launches": None, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": plain_ms, "max_abs_err": err[what],
+                "shape": {"N": n, "F": f, "padding": pad},
+            })
+            print(f"  {tag}: ms={ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({100 * bound_ms / ms:.1f}% of the byte bound) plain ms={plain_ms:.4f} "
+                  f"({plain_ms / ms:.2f}x) max_abs_err {err[what]:.2e}", flush=True)
+            scale_ref = 1e-4 if what != "bwd" else 1e-4 * float(dx.abs().max())
+            if not err[what] <= scale_ref * 10:
+                failures.append(f"{tag}: max_abs_err {err[what]:.2e}")
+    torch.cuda.synchronize()
+    return records, failures
+
+
 def _teacher_run(argv, expected):
     """One run of the teacher CLI at arxiv shape with every kernel's counter
     read around it; returns (launches by kernel, failures)."""
@@ -1441,7 +1574,7 @@ def _teacher_run(argv, expected):
 
     from efficient_gnns_tpu_torch.cli import gat_teacher
 
-    counters = {**_counters(), **_hub_counters()}
+    counters = {**_counters(), **_hub_counters(), **_bn_counters()}
     for c in counters.values():
         c.launches = 0
     summary = gat_teacher.main(argv + [
@@ -3572,7 +3705,7 @@ def phase_parallel(smi):
 
 PHASES = ("k1", "attention_kernels", "k3", "split_edges", "threshold_sweep",
           "thin_group_sweep", "reference", "teacher_reference", "hub_attention", "hub_fused",
-          "sign_reference", "slice", "teacher_slice", "sign_slice", "checkpoint",
+          "masked_bn", "sign_reference", "slice", "teacher_slice", "sign_slice", "checkpoint",
           "ogbn_cache", "runtime_spmm", "teacher_profile", "student_profile", "sign_profile",
           "ppi_kernels", "ppi_reference", "ppi_slice", "ppi_profile", "mag_kernels",
           "mag_reference", "mag_slice", "mag_profile", "mol_reference", "mol_kernels",
@@ -3626,6 +3759,8 @@ def main(argv=None) -> int:
                         ("hub_fused", phase_hub_fused)):
         recs, fails = run(name, phase, ds.graph) or ([], [])
         records, failures = records + recs, failures + fails
+    recs, fails = run("masked_bn", phase_masked_bn) or ([], [])
+    records, failures = records + recs, failures + fails
     failures += run("split_edges", phase_split_edges) or []
     run("threshold_sweep", phase_threshold_sweep, ds.graph)
     failures += run("thin_group_sweep", phase_thin_group_sweep, ds.graph) or []

@@ -65,7 +65,7 @@ class GCN(nn.Module):
                 generator: Optional[torch.Generator] = None):
         h = x
         for conv, bn in zip(self.convs[:-1], self.bns):
-            h = torch.relu(bn(conv(graph, h), graph.node_mask))
+            h = bn(conv(graph, h), graph.node_mask, relu=True)
             if self.training:
                 h = dropout(h, self.dropout, generator)
         out_feat = h
@@ -119,7 +119,7 @@ class DGLGCN(nn.Module):
                 out = out + h @ self.linear_weights[i]
             h = out
             if i < len(self.bns):
-                h = torch.relu(self.bns[i](h, graph.node_mask))
+                h = self.bns[i](h, graph.node_mask, relu=True)
                 if self.training:
                     h = dropout(h, self.dropout, generator)
                 out_feat = h
@@ -150,7 +150,7 @@ class ProjectionMLP(ProjectionLinear):
         self.bn = MaskedBatchNorm(proj_dim, device=device, group=bn_group)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        return torch.relu(self.bn(super().forward(x), mask))
+        return self.bn(super().forward(x), mask, relu=True)
 
 
 class ProjectionGCD(nn.Module):
@@ -173,7 +173,7 @@ class ProjectionGCD(nn.Module):
         h = self.conv(graph, x)
         if self.lin_weight is not None:
             h = h + x @ self.lin_weight + self.lin_bias
-        return torch.relu(self.bn(h, graph.node_mask))
+        return self.bn(h, graph.node_mask, relu=True)
 
 
 class GATTeacher(nn.Module):
@@ -222,7 +222,7 @@ class GATTeacher(nn.Module):
         out_feat = None
         for conv, bn in zip(self.convs[:-1], self.bns):
             h = conv(graph, h, generator).flatten(1)
-            h = torch.relu(bn(h, graph.node_mask))
+            h = bn(h, graph.node_mask, relu=True)
             if self.training:
                 h = dropout(h, self.dropout, generator)
             out_feat = h

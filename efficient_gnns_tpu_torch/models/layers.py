@@ -20,6 +20,7 @@ from torch import nn
 from efficient_gnns_tpu_torch.graphs.container import Graph
 from efficient_gnns_tpu_torch.ops import spmm, spmm_mean
 from efficient_gnns_tpu_torch.ops.attention import gat_attention, sample_edge_masks
+from efficient_gnns_tpu_torch.ops.cuda.masked_bn import masked_batch_norm, masked_batch_norm_plain
 from efficient_gnns_tpu_torch.ops.hub_attention import hub_gat_attention, supports_hub_attention
 from efficient_gnns_tpu_torch.parallel.collectives import all_reduce_stat
 
@@ -44,7 +45,10 @@ class MaskedBatchNorm(nn.Module):
     loses ``mean^2 / var`` ulps of float32 to cancellation, which columns
     whose mean dwarfs their spread (a virtual node's pooled sums) turn into
     errors of 1e-4 in the output, where ``torch.nn.BatchNorm1d`` keeps
-    float32 rounding. Not with a ``group``."""
+    float32 rounding. Not with a ``group``. On a CUDA device without a
+    ``group`` the layer runs the kernels of ``ops/cuda/masked_bn.py``, whose
+    variance is always the mean squared deviation; ``forward``'s ``relu``
+    applies a ReLU in the same pass."""
 
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5,
                  device="cuda", group=None, two_pass: bool = False):
@@ -58,40 +62,24 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features, device=device))
         self.register_buffer("running_var", torch.ones(features, device=device))
 
-    def _stats(self, x: torch.Tensor, mask: Optional[torch.Tensor]):
-        """The mean and the biased variance over the rows (those of
-        ``mask``), summed over ``group``."""
-        xf = x.float()
-        if mask is not None:
-            m = mask.float()[:, None]
-            count, rows = m.sum(), (lambda t: t * m)
-        else:
-            count, rows = torch.tensor(float(x.shape[0]), device=x.device), (lambda t: t)
-        s1 = rows(xf).sum(0)
-        if self.two_pass:
-            count = count.clamp_min(1.0)
-            mean = s1 / count
-            dev = xf - mean
-            return mean, rows(dev * dev).sum(0) / count
-        s2 = rows(xf * xf).sum(0)
-        if self.group is not None:
-            f = s1.shape[0]
-            stats = all_reduce_stat(torch.cat([count.reshape(1), s1, s2]), self.group)
-            count, s1, s2 = stats[0], stats[1:f + 1], stats[f + 1:]
-        count = count.clamp_min(1.0)
-        mean = s1 / count
-        return mean, (s2 / count - mean * mean).clamp_min(0.0)
+    def _reduce(self, count, s1, s2):
+        """The count and both sums, summed over ``group``."""
+        f = s1.shape[0]
+        stats = all_reduce_stat(torch.cat([count.reshape(1), s1, s2]), self.group)
+        return stats[0], stats[1:f + 1], stats[f + 1:]
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        if self.training:
-            mean, var = self._stats(x, mask)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
-                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
-        y = (x.float() - mean) * torch.rsqrt(var + self.epsilon)
-        return (y * self.scale + self.bias).to(x.dtype)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                relu: bool = False):
+        """The normalised ``x``, through a ReLU with ``relu``: without a
+        ``group`` :func:`masked_batch_norm` (the kernels on a CUDA device, the
+        plain chain on the CPU); with one, the plain chain, its sums
+        all-reduced."""
+        kw = dict(training=self.training, momentum=self.momentum, epsilon=self.epsilon,
+                  relu=relu, two_pass=self.two_pass)
+        args = (x, mask, self.scale, self.bias, self.running_mean, self.running_var)
+        if self.group is None:
+            return masked_batch_norm(*args, **kw)
+        return masked_batch_norm_plain(*args, **kw, reduce=self._reduce)
 
 
 def xavier_uniform(in_features: int, features: int, generator: torch.Generator,

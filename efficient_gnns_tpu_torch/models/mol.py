@@ -111,7 +111,7 @@ class GINEConv(nn.Module):
     def forward(self, batch: BatchedGraphs, x: torch.Tensor, edge_emb: torch.Tensor):
         msg = torch.relu(_gather_senders(batch, x) + edge_emb)
         h = (1.0 + self.eps) * x + _aggregate(batch, msg)
-        h = torch.relu(self.bn(self.dense[0](h), batch.graph.node_mask))
+        h = self.bn(self.dense[0](h), batch.graph.node_mask, relu=True)
         return self.dense[1](h)
 
 
@@ -277,9 +277,9 @@ class MolGNN(nn.Module):
         return self.hidden
 
     def _vn_norm(self, j: int, v: torch.Tensor, batch: BatchedGraphs) -> torch.Tensor:
-        """The virtual node MLP's ``j``-th BatchNorm over the real graphs, or
-        ``v`` itself without ``virtual_node_norm``."""
-        return self.vn_bns[j](v, batch.graph_mask) if self.vn_bns else v
+        """``relu`` of the virtual node MLP's ``j``-th BatchNorm over the real
+        graphs, or of ``v`` itself without ``virtual_node_norm``."""
+        return self.vn_bns[j](v, batch.graph_mask, relu=True) if self.vn_bns else torch.relu(v)
 
     def forward(self, batch: BatchedGraphs, atoms: torch.Tensor, bonds: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
@@ -295,17 +295,16 @@ class MolGNN(nn.Module):
                                         batch.ident, batch.graph_split)
                 h = torch.where(mask, h, 0.0)
             h_in = h
-            h = self.bns[i](self.convs[i](batch, h, edge_emb), batch.graph.node_mask)
-            if i < last:
-                h = torch.relu(h)
+            h = self.bns[i](self.convs[i](batch, h, edge_emb), batch.graph.node_mask,
+                            relu=i < last)
             if self.training:
                 h = dropout(h, self.dropout, generator)
             if self.residual:
                 h = h + h_in
             if self.virtual_node and i < last:
                 pooled = global_sum_pool(batch, h_in) + vstate
-                v = torch.relu(self._vn_norm(2 * i, self.vn_lins[2 * i](pooled), batch))
-                v = torch.relu(self._vn_norm(2 * i + 1, self.vn_lins[2 * i + 1](v), batch))
+                v = self._vn_norm(2 * i, self.vn_lins[2 * i](pooled), batch)
+                v = self._vn_norm(2 * i + 1, self.vn_lins[2 * i + 1](v), batch)
                 vstate = dropout(v, self.dropout, generator) if self.training else v
         graph_feat = global_mean_pool(batch, h)
         return self.graph_pred(graph_feat), graph_feat

@@ -7,7 +7,9 @@ K1 ``csr_segment_sum``; K2 ``csr_segment_sum_heads``; K3 ``csr_sddmm``; K4
 K7 ``csr_tile_rows_thin`` (numbered as the TPU kernels they replace). The
 hub attention layer's fused elementwise passes around K1, which replace no
 TPU kernel: ``hub_messages``, ``hub_epilogue``, ``hub_cotangent``,
-``hub_message_grad`` (``hub_fused.py``).
+``hub_message_grad`` (``hub_fused.py``). MaskedBatchNorm + ReLU, forward,
+backward and eval, which replaces no TPU kernel either:
+``masked_batch_norm`` (``masked_bn.py``).
 """
 
 from efficient_gnns_tpu_torch.ops.cuda.hub_fused import (
@@ -19,6 +21,10 @@ from efficient_gnns_tpu_torch.ops.cuda.hub_fused import (
     hub_message_grad_plain,
     hub_messages,
     hub_messages_plain,
+)
+from efficient_gnns_tpu_torch.ops.cuda.masked_bn import (
+    masked_batch_norm,
+    masked_batch_norm_plain,
 )
 from efficient_gnns_tpu_torch.ops.cuda.segment_heads import (
     csr_sddmm_heads,
@@ -61,4 +67,6 @@ __all__ = [
     "hub_message_grad_plain",
     "hub_messages",
     "hub_messages_plain",
+    "masked_batch_norm",
+    "masked_batch_norm_plain",
 ]

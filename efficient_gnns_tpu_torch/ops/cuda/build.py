@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (plain C
 interface, no PyTorch headers, so a build takes seconds), compiled for
 Hopper (``sm_90a``) at first use. The hash covers the sources and the flags,
 so an edited source is rebuilt. ``build()`` starts one ``nvcc`` per source,
-all at once, and waits for them. ``defines`` (``-D`` flags) build a variant
-of a source under its own hash: how a kernel's constants are measured
-against other values without editing the source.
+all at once, and waits for them; the first ``load()`` that finds a source
+missing builds every missing one so. ``defines`` (``-D`` flags) build a
+variant of a source under its own hash: how a kernel's constants are
+measured against other values without editing the source.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "_build",
 )
-SOURCES = ("segment_sum", "segment_heads", "segment_thin", "segment_sddmm", "hub_fused")
+SOURCES = ("segment_sum", "segment_heads", "segment_thin", "segment_sddmm", "hub_fused",
+           "masked_bn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -83,13 +85,18 @@ def build(names: Iterable[str] = SOURCES, defines: Iterable[str] = ()) -> Dict[s
 
 def load(name: str, defines: Iterable[str] = ()) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` (the variant built with
-    ``defines``), built first if needed."""
+    ``defines``), built first if needed: a missing source of ``SOURCES``
+    is built together with every other one missing, all at once, so that a
+    run's first kernels cost one build and not one each."""
     key = (name, tuple(defines))
     lib = _loaded.get(key)
     if lib is None:
         path = library_path(*key)
         if not os.path.exists(path):
-            build([name], key[1])
+            if key[1] or name not in SOURCES:
+                build([name], key[1])
+            else:
+                build([n for n in SOURCES if not os.path.exists(library_path(n))])
         lib = _loaded[key] = ctypes.CDLL(path)
     return lib
 

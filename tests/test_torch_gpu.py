@@ -649,3 +649,180 @@ def test_mol_batch_moves_to_the_card(rng, cuda_device):
     assert is_recorded_pair(g.row_split, g.row_offsets)
     assert is_recorded_pair(g.t_row_split, g.t_row_offsets)
     assert is_recorded_pair(moved.batch.graph_split, moved.batch.graph_offsets)
+
+
+# MaskedBatchNorm's kernels (ops/cuda/masked_bn.py) at the cells' shapes and
+# around the row-count switch: (rows, features, rows outside the mask, mask)
+BN_SHAPES = [
+    (1280, 600, 460, True),  # a molhiv batch's GIN-E MLP, padding rows
+    (1280, 300, 460, True),  # its BatchNorms after the convs
+    (32, 600, 9, True),  # the virtual node's MLP over padded graphs
+    (32, 300, 9, True),
+    (169343, 750, 0, True),  # the GAT teacher, every row kept
+    (169343, 256, 0, True),  # the GCN student
+    (91445, 256, 0, False),  # a projection head on the train rows, no mask
+    (2048, 300, 100, True),  # the one-kernel path's last row count
+    (2049, 300, 100, True),  # the two-kernel path's first
+    (700, 7, 150, True),  # an odd width
+    (5000, 13, 900, False),
+]
+
+
+def _bn_inputs(n, f, pad, use_mask, seed=0):
+    """x with column spreads 0.5-3.5 and means within about 4 (so float32
+    rounding of x - mean stays near an ulp of x's spread), a mask with
+    ``pad`` rows out, the affine, running statistics and a cotangent."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.randn(n, f, generator=g) * (0.5 + 3 * torch.rand(f, generator=g))
+         + 2 * torch.randn(f, generator=g))
+    mask = None
+    if use_mask:
+        mask = torch.ones(n, dtype=torch.bool)
+        mask[torch.randperm(n, generator=g)[:pad]] = False
+    scale = 1 + 0.5 * torch.randn(f, generator=g)
+    bias = 0.3 * torch.randn(f, generator=g)
+    rm, rv = 0.1 * torch.randn(f, generator=g), 1 + torch.rand(f, generator=g)
+    return x, mask, scale, bias, rm, rv, torch.randn(n, f, generator=g)
+
+
+def _bn_run(fn, dev, dtype, x, mask, scale, bias, rm, rv, dy, training, relu, relu_mask=None):
+    """``fn``'s output, its three gradients and the running statistics after
+    one call on ``dev`` in ``dtype``. With ``relu_mask`` the ReLU's mask is
+    that one (the kernel's, so that no z within rounding of 0 flips): ``fn``
+    runs without its ReLU and the mask multiplies."""
+    def cast(t):
+        return t.to(dev, dtype if t.is_floating_point() else t.dtype, copy=True)
+
+    xx, sc, bi = (cast(t).requires_grad_(True) for t in (x, scale, bias))
+    rmm, rvv = cast(rm), cast(rv)
+    y = fn(xx, None if mask is None else cast(mask), sc, bi, rmm, rvv, training=training,
+           momentum=0.9, epsilon=1e-5, relu=relu and relu_mask is None)
+    if relu_mask is not None:
+        y = y * cast(relu_mask)
+    y.backward(cast(dy))
+    return [t.detach().double().cpu() for t in (y, xx.grad, sc.grad, bi.grad, rmm, rvv)]
+
+
+@pytest.mark.parametrize("training", [True, False])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("n,f,pad,use_mask", BN_SHAPES)
+def test_masked_bn_kernels_match_float64_on_card(cuda_device, n, f, pad, use_mask, training,
+                                                 relu):
+    """The kernels against the plain version in float64 (two-pass): ``y``,
+    ``dx`` (rows outside the mask included), ``dscale``, ``dbias`` and the
+    running statistics within float32 rounding, the same bits at a second
+    call, and the kernels of the row count's path launched."""
+    from efficient_gnns_tpu_torch.ops.cuda import masked_bn as M
+
+    inputs = _bn_inputs(n, f, pad, use_mask)
+    counts = [k.launches for k in M.KERNELS]
+    got = _bn_run(M.masked_batch_norm, cuda_device, torch.float32, *inputs, training, relu)
+    fired = {k.__name__ for k, c in zip(M.KERNELS, counts) if k.launches > c}
+    again = _bn_run(M.masked_batch_norm, cuda_device, torch.float32, *inputs, training, relu)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    small = n <= M.SMALL_ROWS
+    want = ({"bn_eval"} if not training else {"bn_fused"} if small
+            else {"bn_partials", "bn_apply"})
+    want |= {"bn_grad_fused"} if small else {"bn_grad_partials", "bn_grad_apply"}
+    assert fired == want
+
+    def plain(*a, **kw):
+        return M.masked_batch_norm_plain(*a, two_pass=True, **kw)
+
+    relu_mask = (got[0] > 0).float() if relu else None
+    ref = _bn_run(plain, cuda_device, torch.float64, *inputs, training, relu, relu_mask)
+    y, dx, dscale, dbias, rm, rv = got
+    x, mask, _, _, rm0, rv0, dy = inputs
+    x, dy = x.double(), dy.double()
+    if training:
+        rows = x if mask is None else x[mask]
+        mean, var = rows.mean(0), rows.var(0, unbiased=False)
+    else:
+        mean, var = rm0.double(), rv0.double()
+    xh = (x - mean) / torch.sqrt(var + 1e-5)
+    dz = dy if relu_mask is None else dy * relu_mask.double()
+
+    def close(a, b, scale):  # within float32 rounding of the quantity's scale
+        assert float((a - b).abs().max()) <= 1e-5 * scale, float((a - b).abs().max()) / scale
+
+    close(y, ref[0], float(ref[0].abs().max()))
+    close(dx, ref[1], float(ref[1].abs().max()))
+    close(dbias, ref[3], float(dz.abs().sum(0).max()))
+    close(dscale, ref[2], float((dz * xh).abs().sum(0).max()))
+    close(rm, ref[4], 1.0)
+    close(rv, ref[5], float(ref[5].abs().max()))
+    if mask is not None and (~mask).any():  # the direct term alone outside the mask
+        out = ~mask
+        close(dx[out], ref[1][out], float(ref[1][out].abs().max()))
+    torch.cuda.synchronize()
+
+
+def test_masked_bn_kernels_carry_the_models_on_card(rng, cuda_device):
+    """A training step and an evaluation of the GCN student (3,000 rows: the
+    two-kernel path), of the GAT teacher and of the molhiv GIN-E with its
+    virtual node's BatchNorms (the one-kernel path; its steps replayed as
+    CUDA graphs) go through the BatchNorm kernels, and the GCN's step on the
+    card agrees with the CPU's."""
+    from efficient_gnns_tpu_torch.data import synthetic_molhiv_dataset
+    from efficient_gnns_tpu_torch.models import GCN, GATTeacher, MolGNN
+    from efficient_gnns_tpu_torch.ops.cuda import masked_bn as M
+    from efficient_gnns_tpu_torch.train import DistillConfig, MolTrainer
+
+    def fired(step):
+        before = {k.__name__: k.launches for k in M.KERNELS}
+        step()
+        torch.cuda.synchronize()
+        return {k.__name__: k.launches - before[k.__name__] for k in M.KERNELS}
+
+    n = 3000
+    s, r = rng.integers(0, n, 12000), rng.integers(0, n, 12000)
+    graph = build_graph(s, r, n, bidirected=True, self_loops=True)
+    x = torch.from_numpy(rng.normal(size=(n, 12)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        model = GCN(12, 48, 5, 2, dropout=0.0, seed=3, device=dev)
+        g = graph.to(dev)
+
+        def gcn_step():
+            logits, _ = model(g, x.to(dev))
+            logits.square().mean().backward()
+            model.eval()
+            with torch.no_grad():
+                out[str(dev)] = (logits.detach().cpu(), model(g, x.to(dev))[0].cpu(),
+                                 [p.grad.cpu() for p in model.parameters()])
+            model.train()
+
+        counts = fired(gcn_step)
+    assert counts == {"bn_fused": 0, "bn_partials": 1, "bn_apply": 1, "bn_eval": 1,
+                      "bn_grad_fused": 0, "bn_grad_partials": 1, "bn_grad_apply": 1}
+    for a, b in zip(out[str(cuda_device)][:2], out["cpu"][:2]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    for a, b in zip(out[str(cuda_device)][2], out["cpu"][2]):
+        torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+
+    small = _high_degree(rng).to(cuda_device)
+    teacher = GATTeacher(10, 8, 4, num_layers=3, num_heads=2, device=cuda_device)
+    feat = torch.randn(N, 10, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def gat_step():
+        teacher(small, feat, gen)[0].sum().backward()
+        teacher.eval()
+        with torch.no_grad():
+            teacher(small, feat)
+        teacher.train()
+
+    assert fired(gat_step) == {"bn_fused": 2, "bn_partials": 0, "bn_apply": 0, "bn_eval": 2,
+                               "bn_grad_fused": 2, "bn_grad_partials": 0, "bn_grad_apply": 0}
+
+    ds = synthetic_molhiv_dataset(n_train=32, n_valid=8, n_test=8, seed=3)
+    mol = MolGNN("gine", 16, 1, 3, virtual_node=True, virtual_node_norm=True, seed=1,
+                 device=cuda_device)
+    tr = MolTrainer(DistillConfig(lr=0.003), ds, mol, batch_size=8, max_atoms=24, seed=0,
+                    device=cuda_device)
+    counts = fired(lambda: tr.run_epochs(0, 1))
+    # 3 convs' MLPs + 3 after the convs + 2 x 2 in the virtual node: 10 a step,
+    # eagerly in the first two steps and inside the capture of a signature's graph
+    assert counts["bn_fused"] >= 2 * 10 and counts["bn_grad_fused"] >= 2 * 10
+    assert counts["bn_eval"] >= 10
+    assert counts["bn_partials"] == counts["bn_grad_partials"] == 0
