@@ -8,8 +8,8 @@ name. It imports
 written for Hopper (``ops/cuda``); on CPU tensors the same functions run as
 plain PyTorch.
 
-Ported so far: every workload (ogbn-arxiv with the GCN, SAGE and SIGN
-students and the GAT teacher, PPI, ogbn-mag, ogbg-molhiv), every CLI and
-every single-device module, the tooling of ``analysis`` included. See
-ROADMAP.md for what remains (the multi-device modules).
+Ported: every workload (ogbn-arxiv with the GCN, SAGE and SIGN students
+and the GAT teacher, PPI, ogbn-mag, ogbg-molhiv), every CLI, every
+single-device module, the tooling of ``analysis`` and the multi-device
+layer (``parallel``).
 """

@@ -26,14 +26,15 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
+from typing import Optional
 
 import numpy as np
 import torch
 
 # Edges per chunk, and the longest row that keeps a single owner. Measured at
-# ogbn-arxiv shape on an H100 (chip_smoke.py's threshold sweep, PERF.md): 64
-# to 256 lie within 5% of each other for K1 and K2; 32 writes four times the
-# partials and 2,048 leaves the units too unequal (K1 twice as slow).
+# ogbn-arxiv shape on an H100 (PERF.md): 64 to 256 lie within 5% of each
+# other for K1 and K2; 32 writes four times the partials and 2,048 leaves the
+# units too unequal (K1 twice as slow).
 ROW_SPLIT_THRESHOLD = 128
 
 
@@ -128,6 +129,47 @@ def record_pair(split: RowSplit, row_offsets: torch.Tensor) -> None:
 
 def is_recorded_pair(split: RowSplit, row_offsets: torch.Tensor) -> bool:
     return _paired.get(_pair_key(split, row_offsets)) is split
+
+
+def check_split(name: str, split: Optional[RowSplit], row_offsets: torch.Tensor,
+                edges: torch.Tensor) -> None:
+    """Raise unless ``split`` (when given) is the row split of ``row_offsets``
+    on their device and fits ``edges`` (any per-edge tensor ``[E_pad, ...]``);
+    ``name`` is the caller's, for the message.
+
+    Shape and device are compared at every call. That the schedule was built
+    from these very offsets (and not, say, from the other edge order's, which
+    have the same shape) is checked by building it again, the first time a
+    split meets a ``row_offsets`` tensor: one host copy then, none later. A
+    pair that ``build_graph`` made from one host array, and moved with
+    ``Graph.to``, is recorded there and taken without the copy: a sampler's
+    new graph at every step does not wait for the device.
+    """
+    if split is None:
+        return
+    if (split.num_rows != row_offsets.numel() - 1 or split.num_edges > edges.shape[0]
+            or split.device != row_offsets.device):
+        raise ValueError(
+            f"{name}: row split of {split.num_rows} rows / {split.num_edges} edges on "
+            f"{split.device} does not fit row_offsets [{row_offsets.numel()}] and "
+            f"[{edges.shape[0]}] edges on {row_offsets.device}")
+    if is_recorded_pair(split, row_offsets):
+        return
+    want = build_row_split(row_offsets, split.threshold)
+    if not (want.num_edges == split.num_edges
+            and torch.equal(want.long_rows, split.long_rows.cpu())
+            and torch.equal(want.chunks, split.chunks.cpu())
+            and torch.equal(want.long_first, split.long_first.cpu())):
+        raise ValueError(
+            f"{name}: the row split was not built from these row_offsets "
+            f"(the other edge order's, or another graph's)")
+    record_pair(split, row_offsets)
+
+
+def derive_split(row_offsets: torch.Tensor) -> RowSplit:
+    """The row split of ``row_offsets`` on their device, for a caller that
+    has none: the slow way, one copy to the host and back at every call."""
+    return build_row_split(row_offsets).to(row_offsets.device)
 
 
 def segment_reduce_by_split(vals: torch.Tensor, row_offsets: torch.Tensor,

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``csrc/``), their wrappers and their
 plain PyTorch versions. Nothing is compiled at import: a kernel's library is
-built with ``nvcc`` at its first launch (see ``build.py``).
+built with ``nvcc`` at its first launch (see ``build.py``). Every wrapper
+binds, checks, launches and counts through ``launch.py``, whose
+``launch.COUNTED`` holds each wrapper's ``launches`` counter.
 
 K1 ``csr_segment_sum``; K2 ``csr_segment_sum_heads``; K3 ``csr_sddmm``; K4
 ``csr_sddmm_heads``; K5 ``csr_segment_sum_thin``; K6 ``csr_segment_max_thin``;

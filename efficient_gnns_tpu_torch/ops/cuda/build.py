@@ -5,9 +5,9 @@ interface, no PyTorch headers, so a build takes seconds), compiled for
 Hopper (``sm_90a``) at first use. The hash covers the sources and the flags,
 so an edited source is rebuilt. ``build()`` starts one ``nvcc`` per source,
 all at once, and waits for them; the first ``load()`` that finds a source
-missing builds every missing one so. ``defines`` (``-D`` flags) build a
-variant of a source under its own hash: how a kernel's constants are
-measured against other values without editing the source.
+missing builds every missing one so. ``SOURCES`` are the ``.cu`` files of
+``csrc/``: a new kernel's source is built without an edit here. Binding and
+launching are ``launch.py``'s.
 """
 
 from __future__ import annotations
@@ -17,21 +17,20 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "_build",
 )
-SOURCES = ("segment_sum", "segment_heads", "segment_thin", "segment_sddmm", "hub_fused",
-           "masked_bn")
+SOURCES = tuple(sorted(f[:-3] for f in os.listdir(_CSRC) if f.endswith(".cu")))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -45,8 +44,8 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str, defines: Iterable[str] = ()) -> str:
-    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
+def library_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for fn in sorted(os.listdir(_CSRC)):
         if fn.endswith((".cu", ".cuh")):
             with open(os.path.join(_CSRC, fn), "rb") as f:
@@ -54,18 +53,17 @@ def library_path(name: str, defines: Iterable[str] = ()) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str] = SOURCES, defines: Iterable[str] = ()) -> Dict[str, str]:
-    """Compile the named sources, all at once, each with the ``-D`` flags in
-    ``defines``. Returns the compiler's output (``-Xptxas -v`` register and
-    spill report) by name; raises if a build fails."""
-    defines = tuple(defines)
+def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile the named sources, all at once. Returns the compiler's output
+    (``-Xptxas -v`` register and spill report) by name; raises if a build
+    fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
     for name in names:
-        lib = library_path(name, defines)
+        lib = library_path(name)
         tmp = f"{lib}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, f"{name}.cu")]
         procs[name] = (lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
@@ -83,27 +81,14 @@ def build(names: Iterable[str] = SOURCES, defines: Iterable[str] = ()) -> Dict[s
     return logs
 
 
-def load(name: str, defines: Iterable[str] = ()) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu`` (the variant built with
-    ``defines``), built first if needed: a missing source of ``SOURCES``
-    is built together with every other one missing, all at once, so that a
-    run's first kernels cost one build and not one each."""
-    key = (name, tuple(defines))
-    lib = _loaded.get(key)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed: a
+    missing source is built together with every other one missing, all at
+    once, so that a run's first kernels cost one build and not one each."""
+    lib = _loaded.get(name)
     if lib is None:
-        path = library_path(*key)
+        path = library_path(name)
         if not os.path.exists(path):
-            if key[1] or name not in SOURCES:
-                build([name], key[1])
-            else:
-                build([n for n in SOURCES if not os.path.exists(library_path(n))])
-        lib = _loaded[key] = ctypes.CDLL(path)
+            build([n for n in SOURCES if not os.path.exists(library_path(n))])
+        lib = _loaded[name] = ctypes.CDLL(path)
     return lib
-
-
-def raise_on_error(lib: ctypes.CDLL, rc: int, name: str) -> None:
-    """Raise if a library's launch returned a CUDA error code (its
-    ``cudaGetLastError()``); a refused launch never runs, and no later
-    synchronisation reports it."""
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: {lib.egt_cuda_error_string(rc).decode()}")

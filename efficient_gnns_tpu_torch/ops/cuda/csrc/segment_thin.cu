@@ -53,26 +53,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// The lane-group widths and loads in flight are measured by rebuilding with
-// other values (chip_smoke.py's thin_group_sweep); these are the ones kept.
-// At ogbn-arxiv shape on an H100 the time follows the number of warps, not
-// the bytes (H = 1 takes about what H = 3 takes): 4 lanes a row beat 8, 16
-// and 32, and 2 lanes win only at H = 1 (PERF.md).
-#ifndef EGT_THIN_ROW_GROUP
-#define EGT_THIN_ROW_GROUP 4
-#endif
-#ifndef EGT_THIN_CHUNK_GROUP
-#define EGT_THIN_CHUNK_GROUP 32
-#endif
-#ifndef EGT_THIN_LOADS
-#define EGT_THIN_LOADS 4
-#endif
-
 namespace {
 
-constexpr int kRowGroup = EGT_THIN_ROW_GROUP;      // lanes that own a short row
-constexpr int kChunkGroup = EGT_THIN_CHUNK_GROUP;  // lanes that own a chunk
-constexpr int kLoads = EGT_THIN_LOADS;  // edges a lane loads before it combines
+// The lane-group widths and loads in flight, measured against other values
+// at ogbn-arxiv shape on an H100: the time follows the number of warps, not
+// the bytes (H = 1 takes about what H = 3 takes); 4 lanes a row beat 1, 2,
+// 8, 16 and 32 at H = 3, and 2 lanes win only at H = 1 (PERF.md).
+constexpr int kRowGroup = 4;     // lanes that own a short row
+constexpr int kChunkGroup = 32;  // lanes that own a chunk
+constexpr int kLoads = 4;        // edges a lane loads before it combines
 constexpr int kLongLoads = 8;           // the same for a thread's slots in pass 2
 constexpr int kThinWarps = 8;           // warps per block, both passes
 constexpr int kMaxHeads = 8;

@@ -31,15 +31,25 @@ between them.
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from efficient_gnns_tpu_torch.ops.cuda import build
-from efficient_gnns_tpu_torch.ops.cuda.segment_sum import DTYPE_CODE
+from efficient_gnns_tpu_torch.ops.cuda import launch
+from efficient_gnns_tpu_torch.ops.cuda.launch import DTYPE_CODE, FLOAT
 
 F32_TINY = float(torch.finfo(torch.float32).tiny)
+_LIB = launch.Library("hub_fused", {"egt_hub_messages": "pppiiiiiip",
+                                    "egt_hub_epilogue": "ppppiiiiip",
+                                    "egt_hub_cotangent": "ppppiiiiiip",
+                                    "egt_hub_message_grad": "pppppiiiiip"})
+_MESSAGES = launch.Checks("hub_messages", ("x", 3, FLOAT), ("z", 2, FLOAT))
+_EPILOGUE = launch.Checks("hub_epilogue", ("total", 2, FLOAT), ("scale", 1, FLOAT),
+                          ("res", 3, FLOAT))
+_COTANGENT = launch.Checks("hub_cotangent", ("g", 3, FLOAT), ("total", 2, FLOAT),
+                           ("scale", 1, FLOAT))
+_MESSAGE_GRAD = launch.Checks("hub_message_grad", ("dy", 2, FLOAT), ("x", 3, FLOAT),
+                              ("z", 2, FLOAT))
 
 
 def hub_layout(heads: int, d: int) -> Tuple[int, int]:
@@ -85,55 +95,10 @@ def normalize_grads(g: torch.Tensor, out: torch.Tensor, den: torch.Tensor):
     return g * inv, -(g * out).sum(-1) * inv[:, :, 0]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("hub_fused")
-    if lib.egt_hub_messages.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.egt_hub_messages.argtypes = [p, p, p, i, i, i, i, i, i, p]
-        lib.egt_hub_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.egt_hub_cotangent.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-        lib.egt_hub_message_grad.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
-        for fn in (lib.egt_hub_messages, lib.egt_hub_epilogue, lib.egt_hub_cotangent,
-                   lib.egt_hub_message_grad):
-            fn.restype = i
-        lib.egt_cuda_error_string.argtypes = [i]
-        lib.egt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(name: str, shapes: Dict[str, Tuple[int, ...]],
-           tensors: Dict[str, Optional[torch.Tensor]]) -> torch.device:
-    """Raise unless every given tensor has its shape in ``shapes``, is
-    float32, contiguous and on one cpu or cuda device, with fewer than 2**31
-    entries. Returns the device."""
-    given = {k: t for k, t in tensors.items() if t is not None}
-    device = next(iter(given.values())).device
-    for key, t in given.items():
-        if tuple(t.shape) != shapes[key]:
-            raise ValueError(f"{name}: {key} must be {list(shapes[key])}, got {list(t.shape)}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} must be float32, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name}: all tensors must be on one device, got {key} on "
-                             f"{t.device} and others on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} needs contiguous tensors ({key} is not)")
-        if t.numel() >= 2**31:
-            raise ValueError(f"{name}: int32 indexing needs < 2**31 entries ({key})")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda, not {device}")
-    return device
-
-
-def _layout_shapes(n: int, heads: int, d: int) -> Dict[str, Tuple[int, ...]]:
-    dp, hp = hub_layout(heads, d)
-    wide = (n, heads * dp + hp)
-    return {"x": (n, heads, d), "z": (n, heads), "scale": (n,), "res": (n, heads, d),
-            "g": (n, heads, d), "total": wide, "dy": wide}
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def _check_shape(name: str, key: str, t: Optional[torch.Tensor],
+                 shape: Tuple[int, ...]) -> None:
+    if t is not None and tuple(t.shape) != shape:
+        raise ValueError(f"{name}: {key} must be {list(shape)}, got {list(t.shape)}")
 
 
 def _msg_code(name: str, msg_dtype: torch.dtype) -> int:
@@ -147,6 +112,7 @@ def hub_messages_plain(x: torch.Tensor, z: torch.Tensor, msg_dtype: torch.dtype)
     return _fold(x * z[:, :, None], z).to(msg_dtype)
 
 
+@launch.counted()
 def hub_messages(x: torch.Tensor, z: torch.Tensor, msg_dtype: torch.dtype) -> torch.Tensor:
     """The messages ``y [N, W]`` that K1 sums: ``x [N, H, D] * z [N, H]``
     per head, ``z`` in the scalar column, zeros elsewhere, in ``msg_dtype``
@@ -154,17 +120,15 @@ def hub_messages(x: torch.Tensor, z: torch.Tensor, msg_dtype: torch.dtype) -> to
     product."""
     name = "hub_messages"
     code = _msg_code(name, msg_dtype)
-    n, h, d = x.shape if x.dim() == 3 else (-1, -1, -1)
-    device = _check(name, _layout_shapes(n, h, d), {"x": x, "z": z})
-    if device.type == "cpu":
+    device = _MESSAGES(x, z)
+    n, h, d = x.shape
+    _check_shape(name, "z", z, (n, h))
+    if x.is_cpu:
         return hub_messages_plain(x, z, msg_dtype)
     dp, hp = hub_layout(h, d)
     y = torch.empty((n, h * dp + hp), dtype=msg_dtype, device=device)
-    lib = _lib()
-    rc = lib.egt_hub_messages(x.data_ptr(), z.data_ptr(), y.data_ptr(), code, n, h, d, dp, hp,
-                              _stream(device))
-    build.raise_on_error(lib, rc, name)
-    hub_messages.launches += 1
+    launch.run(hub_messages, _LIB, "egt_hub_messages", x.data_ptr(), z.data_ptr(),
+               y.data_ptr(), code, n, h, d, dp, hp, launch.stream(device))
     return y
 
 
@@ -181,6 +145,7 @@ def hub_epilogue_plain(total: torch.Tensor, heads: int, d: int,
     return out
 
 
+@launch.counted()
 def hub_epilogue(total: torch.Tensor, heads: int, d: int,
                  scale: Optional[torch.Tensor] = None,
                  res: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -188,21 +153,17 @@ def hub_epilogue(total: torch.Tensor, heads: int, d: int,
     ``num / den``, 0 for a denominator below the smallest normal float32,
     times ``scale [N]`` and plus ``res [N, H, D]`` where given."""
     name = "hub_epilogue"
-    if total.dim() != 2:
-        raise ValueError(f"{name}: total must be [N, W], got {list(total.shape)}")
-    device = _check(name, _layout_shapes(total.shape[0], heads, d),
-                    {"total": total, "scale": scale, "res": res})
-    if device.type == "cpu":
-        return hub_epilogue_plain(total, heads, d, scale, res)
+    device = _EPILOGUE(total, scale, res)
     n = total.shape[0]
     dp, hp = hub_layout(heads, d)
+    _check_shape(name, "total", total, (n, heads * dp + hp))
+    _check_shape(name, "scale", scale, (n,))
+    _check_shape(name, "res", res, (n, heads, d))
+    if total.is_cpu:
+        return hub_epilogue_plain(total, heads, d, scale, res)
     out = torch.empty((n, heads, d), dtype=torch.float32, device=device)
-    lib = _lib()
-    rc = lib.egt_hub_epilogue(total.data_ptr(), None if scale is None else scale.data_ptr(),
-                              None if res is None else res.data_ptr(), out.data_ptr(),
-                              n, heads, d, dp, hp, _stream(device))
-    build.raise_on_error(lib, rc, name)
-    hub_epilogue.launches += 1
+    launch.run(hub_epilogue, _LIB, "egt_hub_epilogue", total.data_ptr(), launch.ptr(scale),
+               launch.ptr(res), out.data_ptr(), n, heads, d, dp, hp, launch.stream(device))
     return out
 
 
@@ -218,6 +179,7 @@ def hub_cotangent_plain(g: torch.Tensor, total: torch.Tensor,
     return _fold(dnum, dden).to(msg_dtype)
 
 
+@launch.counted()
 def hub_cotangent(g: torch.Tensor, total: torch.Tensor, scale: Optional[torch.Tensor],
                   msg_dtype: torch.dtype) -> torch.Tensor:
     """The cotangent of ``y``'s sums ``ct [N, W]`` in ``msg_dtype``, which
@@ -227,18 +189,17 @@ def hub_cotangent(g: torch.Tensor, total: torch.Tensor, scale: Optional[torch.Te
     row), zeros elsewhere."""
     name = "hub_cotangent"
     code = _msg_code(name, msg_dtype)
-    n, h, d = g.shape if g.dim() == 3 else (-1, -1, -1)
-    device = _check(name, _layout_shapes(n, h, d), {"g": g, "total": total, "scale": scale})
-    if device.type == "cpu":
-        return hub_cotangent_plain(g, total, scale, msg_dtype)
+    device = _COTANGENT(g, total, scale)
+    n, h, d = g.shape
     dp, hp = hub_layout(h, d)
+    _check_shape(name, "total", total, (n, h * dp + hp))
+    _check_shape(name, "scale", scale, (n,))
+    if g.is_cpu:
+        return hub_cotangent_plain(g, total, scale, msg_dtype)
     ct = torch.empty((n, h * dp + hp), dtype=msg_dtype, device=device)
-    lib = _lib()
-    rc = lib.egt_hub_cotangent(g.data_ptr(), total.data_ptr(),
-                               None if scale is None else scale.data_ptr(), ct.data_ptr(),
-                               code, n, h, d, dp, hp, _stream(device))
-    build.raise_on_error(lib, rc, name)
-    hub_cotangent.launches += 1
+    launch.run(hub_cotangent, _LIB, "egt_hub_cotangent", g.data_ptr(), total.data_ptr(),
+               launch.ptr(scale), ct.data_ptr(), code, n, h, d, dp, hp,
+               launch.stream(device))
     return ct
 
 
@@ -248,28 +209,23 @@ def hub_message_grad_plain(dy: torch.Tensor, x: torch.Tensor, z: torch.Tensor):
     return dzx * z[:, :, None], (dzx * x).sum(-1) + dcol
 
 
+@launch.counted()
 def hub_message_grad(dy: torch.Tensor, x: torch.Tensor,
                      z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dx [N, H, D], dz [N, H])`` from the messages' cotangent ``dy
     [N, W]`` (float32, K1's output over the transpose): ``dx = dy * z`` and
     ``dz = sum_d dy * x + dy[scalar column]``."""
     name = "hub_message_grad"
-    n, h, d = x.shape if x.dim() == 3 else (-1, -1, -1)
-    device = _check(name, _layout_shapes(n, h, d), {"dy": dy, "x": x, "z": z})
-    if device.type == "cpu":
-        return hub_message_grad_plain(dy, x, z)
+    device = _MESSAGE_GRAD(dy, x, z)
+    n, h, d = x.shape
     dp, hp = hub_layout(h, d)
+    _check_shape(name, "dy", dy, (n, h * dp + hp))
+    _check_shape(name, "z", z, (n, h))
+    if dy.is_cpu:
+        return hub_message_grad_plain(dy, x, z)
     dx = torch.empty((n, h, d), dtype=torch.float32, device=device)
     dz = torch.empty((n, h), dtype=torch.float32, device=device)
-    lib = _lib()
-    rc = lib.egt_hub_message_grad(dy.data_ptr(), x.data_ptr(), z.data_ptr(), dx.data_ptr(),
-                                  dz.data_ptr(), n, h, d, dp, hp, _stream(device))
-    build.raise_on_error(lib, rc, name)
-    hub_message_grad.launches += 1
+    launch.run(hub_message_grad, _LIB, "egt_hub_message_grad", dy.data_ptr(), x.data_ptr(),
+               z.data_ptr(), dx.data_ptr(), dz.data_ptr(), n, h, d, dp, hp,
+               launch.stream(device))
     return dx, dz
-
-
-hub_messages.launches = 0
-hub_epilogue.launches = 0
-hub_cotangent.launches = 0
-hub_message_grad.launches = 0

@@ -29,17 +29,29 @@ Each kernel's wrapper counts its launches in its ``launches``.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, Optional, Tuple
 
 import torch
 
-from efficient_gnns_tpu_torch.ops.cuda import build
+from efficient_gnns_tpu_torch.ops.cuda import launch
+from efficient_gnns_tpu_torch.ops.cuda.launch import FLOAT, MASK, ptr, stream
 
 SMALL_ROWS = 2048  # egt_masked_bn_small_rows(): the one-kernel path's rows at most
 LANES = 32  # egt_masked_bn_lanes(): threads along the columns in a CTA of the other kernels
 CHUNK_CTAS = 256  # CTAs the chunks of rows aim at, over all column slices
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+_LIB = launch.Library("masked_bn", {
+    "egt_masked_bn_fused": "p" * 9 + "iifffip",
+    "egt_masked_bn_grad_fused": "p" * 10 + "iiiip",
+    "egt_masked_bn_partials": "p" * 5 + "i" * 5 + "p",
+    "egt_masked_bn_apply": "p" * 11 + "i" * 5 + "fffip",
+    "egt_masked_bn_grad_partials": "p" * 10 + "i" * 7 + "p",
+    "egt_masked_bn_grad_apply": "p" * 13 + "i" * 7 + "p",
+    "egt_masked_bn_eval": "p" * 8 + "i" * 5 + "fip",
+}, constants={"egt_masked_bn_small_rows": SMALL_ROWS, "egt_masked_bn_lanes": LANES})
+_CHECK = launch.Checks("masked_batch_norm", ("x", 2, FLOAT), ("mask", 1, MASK),
+                       ("scale", 1, FLOAT), ("bias", 1, FLOAT), ("running_mean", 1, FLOAT),
+                       ("running_var", 1, FLOAT))
 
 
 def batch_stats(x: torch.Tensor, mask: Optional[torch.Tensor], two_pass: bool = False,
@@ -88,30 +100,6 @@ def masked_batch_norm_plain(x: torch.Tensor, mask: Optional[torch.Tensor], scale
     return torch.relu(y) if relu else y
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("masked_bn")
-    if lib.egt_masked_bn_fused.argtypes is None:
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.egt_masked_bn_small_rows.argtypes = lib.egt_masked_bn_lanes.argtypes = []
-        lib.egt_masked_bn_fused.argtypes = [p] * 9 + [i, i, f, f, f, i, p]
-        lib.egt_masked_bn_grad_fused.argtypes = [p] * 10 + [i, i, i, i, p]
-        lib.egt_masked_bn_partials.argtypes = [p] * 5 + [i] * 5 + [p]
-        lib.egt_masked_bn_apply.argtypes = [p] * 11 + [i] * 5 + [f, f, f, i, p]
-        lib.egt_masked_bn_grad_partials.argtypes = [p] * 10 + [i] * 7 + [p]
-        lib.egt_masked_bn_grad_apply.argtypes = [p] * 13 + [i] * 7 + [p]
-        lib.egt_masked_bn_eval.argtypes = [p] * 8 + [i] * 5 + [f, i, p]
-        for fn in (lib.egt_masked_bn_small_rows, lib.egt_masked_bn_lanes, lib.egt_masked_bn_fused,
-                   lib.egt_masked_bn_grad_fused, lib.egt_masked_bn_partials,
-                   lib.egt_masked_bn_apply, lib.egt_masked_bn_grad_partials,
-                   lib.egt_masked_bn_grad_apply, lib.egt_masked_bn_eval):
-            fn.restype = i
-        lib.egt_cuda_error_string.argtypes = [i]
-        lib.egt_cuda_error_string.restype = ctypes.c_char_p
-        if (lib.egt_masked_bn_small_rows(), lib.egt_masked_bn_lanes()) != (SMALL_ROWS, LANES):
-            raise RuntimeError("masked_bn: the library's constants are not SMALL_ROWS, LANES")
-    return lib
-
-
 def vec_for(*tensors: torch.Tensor) -> int:
     """Columns a thread of the two-kernel and eval kernels loads at once: 4,
     2 or 1, the most that the width and every tensor's address allow."""
@@ -132,37 +120,25 @@ def chunks_for(n: int, f: int, vec: int = 1) -> Tuple[int, int]:
     return max(1, -(-n // rows)), rows
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _columns(x: torch.Tensor) -> torch.Tensor:
     return torch.empty(x.shape[1], dtype=torch.float32, device=x.device)
 
 
-def _launch(fn, name: str, *args) -> None:
-    lib = _lib()
-    build.raise_on_error(lib, getattr(lib, f"egt_masked_bn_{name}")(*args), f"masked_bn {name}")
-    fn.launches += 1
-
-
+@launch.counted()
 def bn_fused(x, mask, scale, bias, running_mean, running_var, momentum: float, epsilon: float,
              relu: bool):
     """The training forward in one kernel (``n <= SMALL_ROWS``): ``(y, mean,
     rstd)``; steps the running statistics in place."""
     y, mean, rstd = torch.empty_like(x), _columns(x), _columns(x)
     n, f = x.shape
-    _launch(bn_fused, "fused", x.data_ptr(), _ptr(mask), scale.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), running_mean.data_ptr(),
-            running_var.data_ptr(), n, f, momentum, 1 - momentum, epsilon, int(relu),
-            _stream(x.device))
+    launch.run(bn_fused, _LIB, "egt_masked_bn_fused",
+               x.data_ptr(), ptr(mask), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+               mean.data_ptr(), rstd.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(),
+               n, f, momentum, 1 - momentum, epsilon, int(relu), stream(x.device))
     return y, mean, rstd
 
 
+@launch.counted()
 def bn_partials(x, mask) -> Stats:
     """Per chunk of rows and column, the masked rows' ``(mean, M2)`` ``[chunks,
     F]`` and count ``[chunks]``."""
@@ -172,11 +148,13 @@ def bn_partials(x, mask) -> Stats:
     pmean = torch.empty((chunks, f), dtype=torch.float32, device=x.device)
     pm2, pcount = torch.empty_like(pmean), torch.empty(chunks, dtype=torch.float32,
                                                          device=x.device)
-    _launch(bn_partials, "partials", x.data_ptr(), _ptr(mask), pmean.data_ptr(),
-            pm2.data_ptr(), pcount.data_ptr(), n, f, vec, chunks, rows, _stream(x.device))
+    launch.run(bn_partials, _LIB, "egt_masked_bn_partials",
+               x.data_ptr(), ptr(mask), pmean.data_ptr(), pm2.data_ptr(), pcount.data_ptr(), n, f,
+               vec, chunks, rows, stream(x.device))
     return pmean, pm2, pcount
 
 
+@launch.counted()
 def bn_apply(x, partials: Stats, scale, bias, running_mean, running_var, momentum: float,
              epsilon: float, relu: bool):
     """The training forward's second kernel: merges :func:`bn_partials`'
@@ -187,14 +165,15 @@ def bn_apply(x, partials: Stats, scale, bias, running_mean, running_var, momentu
     chunks, rows = chunks_for(n, f, vec)
     y, mean, rstd = torch.empty_like(x), _columns(x), _columns(x)
     pmean, pm2, pcount = partials
-    _launch(bn_apply, "apply", x.data_ptr(), pmean.data_ptr(), pm2.data_ptr(),
-            pcount.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(),
-            n, f, vec, chunks, rows, momentum, 1 - momentum, epsilon, int(relu),
-            _stream(x.device))
+    launch.run(bn_apply, _LIB, "egt_masked_bn_apply",
+               x.data_ptr(), pmean.data_ptr(), pm2.data_ptr(), pcount.data_ptr(), scale.data_ptr(),
+               bias.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+               running_mean.data_ptr(), running_var.data_ptr(), n, f, vec, chunks, rows, momentum,
+               1 - momentum, epsilon, int(relu), stream(x.device))
     return y, mean, rstd
 
 
+@launch.counted()
 def bn_eval(x, scale, bias, running_mean, running_var, epsilon: float, relu: bool):
     """The eval-mode forward, one pass with the running statistics: ``(y,
     mean, rstd)``."""
@@ -202,9 +181,10 @@ def bn_eval(x, scale, bias, running_mean, running_var, epsilon: float, relu: boo
     vec = vec_for(x)
     chunks, rows = chunks_for(n, f, vec)
     y, mean, rstd = torch.empty_like(x), _columns(x), _columns(x)
-    _launch(bn_eval, "eval", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            running_mean.data_ptr(), running_var.data_ptr(), y.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), n, f, vec, chunks, rows, epsilon, int(relu), _stream(x.device))
+    launch.run(bn_eval, _LIB, "egt_masked_bn_eval",
+               x.data_ptr(), scale.data_ptr(), bias.data_ptr(), running_mean.data_ptr(),
+               running_var.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), n, f, vec,
+               chunks, rows, epsilon, int(relu), stream(x.device))
     return y, mean, rstd
 
 
@@ -212,18 +192,20 @@ def _grads(x):
     return torch.empty_like(x), _columns(x), _columns(x)
 
 
+@launch.counted()
 def bn_grad_fused(dy, x, mask, mean, rstd, scale, bias, relu: bool, frozen: bool):
     """The backward in one kernel (``n <= SMALL_ROWS``): ``(dx, dscale,
     dbias)``; ``frozen`` (eval mode) keeps every row out of the statistics."""
     dx, dscale, dbias = _grads(x)
     n, f = x.shape
-    _launch(bn_grad_fused, "grad_fused", dy.data_ptr(), x.data_ptr(), _ptr(mask),
-            mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(), bias.data_ptr(), dx.data_ptr(),
-            dscale.data_ptr(), dbias.data_ptr(), n, f, int(relu), int(frozen),
-            _stream(x.device))
+    launch.run(bn_grad_fused, _LIB, "egt_masked_bn_grad_fused",
+               dy.data_ptr(), x.data_ptr(), ptr(mask), mean.data_ptr(), rstd.data_ptr(),
+               scale.data_ptr(), bias.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+               dbias.data_ptr(), n, f, int(relu), int(frozen), stream(x.device))
     return dx, dscale, dbias
 
 
+@launch.counted()
 def bn_grad_partials(dy, x, mask, mean, rstd, scale, bias, relu: bool, frozen: bool) -> Stats:
     """Per chunk of rows and column, ``sum dz`` and ``sum dz * xh`` over every
     row ``[chunks, F]``, and the count of the statistics' rows ``[chunks]``."""
@@ -233,13 +215,14 @@ def bn_grad_partials(dy, x, mask, mean, rstd, scale, bias, relu: bool, frozen: b
     pdz = torch.empty((chunks, f), dtype=torch.float32, device=x.device)
     pdzx, pcount = torch.empty_like(pdz), torch.empty(chunks, dtype=torch.float32,
                                                        device=x.device)
-    _launch(bn_grad_partials, "grad_partials", dy.data_ptr(), x.data_ptr(), _ptr(mask),
-            mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            pdz.data_ptr(), pdzx.data_ptr(), pcount.data_ptr(), n, f, vec, chunks, rows,
-            int(relu), int(frozen), _stream(x.device))
+    launch.run(bn_grad_partials, _LIB, "egt_masked_bn_grad_partials",
+               dy.data_ptr(), x.data_ptr(), ptr(mask), mean.data_ptr(), rstd.data_ptr(),
+               scale.data_ptr(), bias.data_ptr(), pdz.data_ptr(), pdzx.data_ptr(),
+               pcount.data_ptr(), n, f, vec, chunks, rows, int(relu), int(frozen), stream(x.device))
     return pdz, pdzx, pcount
 
 
+@launch.counted()
 def bn_grad_apply(dy, x, mask, partials: Stats, mean, rstd, scale, bias, relu: bool,
                   frozen: bool):
     """The backward's second kernel: merges :func:`bn_grad_partials`' sums
@@ -249,18 +232,16 @@ def bn_grad_apply(dy, x, mask, partials: Stats, mean, rstd, scale, bias, relu: b
     chunks, rows = chunks_for(n, f, vec)
     dx, dscale, dbias = _grads(x)
     pdz, pdzx, pcount = partials
-    _launch(bn_grad_apply, "grad_apply", dy.data_ptr(), x.data_ptr(), _ptr(mask),
-            mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            pdz.data_ptr(), pdzx.data_ptr(), pcount.data_ptr(), dx.data_ptr(),
-            dscale.data_ptr(), dbias.data_ptr(), n, f, vec, chunks, rows, int(relu),
-            int(frozen), _stream(x.device))
+    launch.run(bn_grad_apply, _LIB, "egt_masked_bn_grad_apply",
+               dy.data_ptr(), x.data_ptr(), ptr(mask), mean.data_ptr(), rstd.data_ptr(),
+               scale.data_ptr(), bias.data_ptr(), pdz.data_ptr(), pdzx.data_ptr(),
+               pcount.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), n, f, vec,
+               chunks, rows, int(relu), int(frozen), stream(x.device))
     return dx, dscale, dbias
 
 
 KERNELS = (bn_fused, bn_partials, bn_apply, bn_eval, bn_grad_fused, bn_grad_partials,
            bn_grad_apply)
-for _fn in KERNELS:
-    _fn.launches = 0
 
 
 class _MaskedBatchNorm(torch.autograd.Function):
@@ -293,24 +274,15 @@ class _MaskedBatchNorm(torch.autograd.Function):
 
 
 def _check(x, mask, scale, bias, running_mean, running_var) -> None:
-    """Raise unless ``x`` is a contiguous float32 ``[N, F]`` CUDA tensor with
-    fewer than 2**31 entries, ``mask`` None or bool ``[N]``, and the others
-    float32 ``[F]``, all contiguous on ``x``'s device."""
-    name = "masked_batch_norm"
-    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"{name}: x must be a contiguous float32 [N, F], got {x.dtype} "
-                         f"{list(x.shape)}")
-    if x.numel() >= 2**31:
-        raise ValueError(f"{name}: int32 indexing needs < 2**31 entries")
+    """Raise unless ``x`` is float32 ``[N, F]``, ``mask`` None or bool
+    ``[N]``, and the others float32 ``[F]``, all contiguous on one CUDA
+    device, with fewer than 2**31 entries each."""
+    _CHECK(x, mask, scale, bias, running_mean, running_var)
     n, f = x.shape
-    if mask is not None and (mask.shape != (n,) or mask.dtype != torch.bool
-                             or mask.device != x.device or not mask.is_contiguous()):
-        raise ValueError(f"{name}: mask must be a contiguous bool [{n}] on {x.device}")
-    for key, t in (("scale", scale), ("bias", bias), ("running_mean", running_mean),
-                   ("running_var", running_var)):
-        if (t.shape != (f,) or t.dtype != torch.float32 or t.device != x.device
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: {key} must be a contiguous float32 [{f}] on {x.device}")
+    if ((mask is not None and mask.shape[0] != n) or scale.shape[0] != f
+            or bias.shape[0] != f or running_mean.shape[0] != f or running_var.shape[0] != f):
+        raise ValueError("masked_batch_norm: mask [N] and scale, bias, running_mean, "
+                         f"running_var [F] disagree with x [N, F] = {list(x.shape)}")
 
 
 def masked_batch_norm(x: torch.Tensor, mask: Optional[torch.Tensor], scale: torch.Tensor,
@@ -323,12 +295,10 @@ def masked_batch_norm(x: torch.Tensor, mask: Optional[torch.Tensor], scale: torc
     training. On the CPU the plain version (``two_pass`` picks its variance);
     on a CUDA device the kernels, whose variance is always the mean squared
     deviation."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return masked_batch_norm_plain(x, mask, scale, bias, running_mean, running_var,
                                        training=training, momentum=momentum, epsilon=epsilon,
                                        relu=relu, two_pass=two_pass)
-    if x.device.type != "cuda":
-        raise ValueError(f"masked_batch_norm runs on cpu or cuda, not {x.device}")
     _check(x, mask, scale, bias, running_mean, running_var)
     return _MaskedBatchNorm.apply(x, scale, bias, mask, running_mean, running_var,
                                   bool(training), float(momentum), float(epsilon), bool(relu))

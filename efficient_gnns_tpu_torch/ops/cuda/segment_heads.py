@@ -27,61 +27,21 @@ tensors on a CUDA device; they never move work between them.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
-from efficient_gnns_tpu_torch.graphs.row_split import RowSplit
-from efficient_gnns_tpu_torch.ops.cuda import build
-from efficient_gnns_tpu_torch.ops.cuda.segment_sum import (
-    DTYPE_CODE,
-    check_split,
-    derive_split,
-    float_vec,
-)
+from efficient_gnns_tpu_torch.graphs.row_split import RowSplit, check_split, derive_split
+from efficient_gnns_tpu_torch.ops.cuda import launch
+from efficient_gnns_tpu_torch.ops.cuda.launch import DTYPE_CODE, FEATURES, FLOAT, INDEX
 from efficient_gnns_tpu_torch.ops.segment import csr_row_ids, gather
 
 _CHUNK_ELEMENTS = 1 << 27  # plain versions gather at most this many floats at once
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("segment_heads")
-    if lib.egt_csr_segment_sum_heads.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.egt_csr_segment_sum_heads.argtypes = [p, p, i, i, p, p, p, p, p, p, p, i, i, i, i, i,
-                                                  i, p]
-        lib.egt_csr_segment_sum_heads.restype = i
-        lib.egt_csr_sddmm_heads.argtypes = [p, p, i, i, p, p, p, p, i, i, i, i, i, i, i, p]
-        lib.egt_csr_sddmm_heads.restype = i
-        lib.egt_cuda_error_string.argtypes = [i]
-        lib.egt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(name, msgs, floats, ints, num_heads) -> None:
-    for key, t in msgs.items():
-        if t.dim() != 2 or t.dtype not in DTYPE_CODE:
-            raise ValueError(f"{name}: {key} must be 2-D float32/bfloat16, got {t.dtype} "
-                             f"{tuple(t.shape)}")
-    if len({t.dtype for t in msgs.values()}) > 1:
-        raise ValueError(f"{name}: {' and '.join(msgs)} must share one dtype")
-    for key, t in floats.items():
-        if t.dim() != 2 or t.dtype != torch.float32:
-            raise ValueError(f"{name}: {key} must be 2-D float32, got {t.dtype} {tuple(t.shape)}")
-    for key, t in ints.items():
-        if t.dim() != 1 or t.dtype != torch.int32:
-            raise ValueError(f"{name}: {key} must be 1-D int32, got {t.dtype} {tuple(t.shape)}")
-    tensors = [*msgs.values(), *floats.values(), *ints.values()]
-    if any(t.device != tensors[0].device for t in tensors):
-        raise ValueError(f"{name}: all tensors must be on one device")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous tensors")
-    if any(t.numel() >= 2**31 for t in tensors):
-        raise ValueError(f"{name}: int32 indexing needs < 2**31 entries per tensor")
-    if num_heads < 1:
-        raise ValueError(f"{name}: needs at least one head")
-
+_LIB = launch.Library("segment_heads", {"egt_csr_segment_sum_heads": "ppiipppppppiiiiiip",
+                                        "egt_csr_sddmm_heads": "ppiippppiiiiiiip"})
+_CSR = (("src", 1, INDEX), ("row_offsets", 1, INDEX))
+_SUM = launch.Checks("csr_segment_sum_heads", ("x", 2, FEATURES), ("w", 2, FLOAT), *_CSR)
+_SDDMM = launch.Checks("csr_sddmm_heads", ("g", 2, FEATURES), ("x", 2, FEATURES), *_CSR)
 
 
 def csr_segment_sum_heads_plain(x, w, src, row_offsets) -> torch.Tensor:
@@ -101,6 +61,7 @@ def csr_segment_sum_heads_plain(x, w, src, row_offsets) -> torch.Tensor:
     return out
 
 
+@launch.counted("K2")
 def csr_segment_sum_heads(x, w, src, row_offsets,
                           split: Optional[RowSplit] = None) -> torch.Tensor:
     """float32[num_rows, H*D] multi-head CSR segment sums (K2).
@@ -115,36 +76,30 @@ def csr_segment_sum_heads(x, w, src, row_offsets,
     ``csr_segment_sum_heads.launches``) or raises.
     """
     name = "csr_segment_sum_heads"
-    _check(name, {"x": x}, {"w": w}, {"src": src, "row_offsets": row_offsets}, w.shape[1])
+    device = _SUM(x, w, src, row_offsets)
     h = w.shape[1]
-    if x.shape[1] % h or w.shape[0] != src.shape[0]:
+    if h < 1 or x.shape[1] % h or w.shape[0] != src.shape[0]:
         raise ValueError(f"{name}: x [*, H*D], w [E_pad, H] and "
                          f"src [E_pad] disagree: {tuple(x.shape)}, {tuple(w.shape)}, "
                          f"{tuple(src.shape)}")
     check_split(name, split, row_offsets, src)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return csr_segment_sum_heads_plain(x, w, src, row_offsets)
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
     if split is None:
         split = derive_split(row_offsets)
-    lib = _lib()
     num_rows, d = row_offsets.numel() - 1, x.shape[1] // h
-    out = torch.empty((num_rows, h * d), dtype=torch.float32, device=x.device)
-    partial = torch.empty((split.num_chunks, h * d), dtype=torch.float32, device=x.device)
-    rc = lib.egt_csr_segment_sum_heads(
-        x.data_ptr(), w.data_ptr(), DTYPE_CODE[x.dtype], float_vec(x.dtype, d, x.data_ptr()),
+    out = torch.empty((num_rows, h * d), dtype=torch.float32, device=device)
+    partial = torch.empty((split.num_chunks, h * d), dtype=torch.float32, device=device)
+    launch.run(
+        csr_segment_sum_heads, _LIB, "egt_csr_segment_sum_heads",
+        x.data_ptr(), w.data_ptr(), DTYPE_CODE[x.dtype],
+        launch.float_vec(x.dtype, d, x.data_ptr()),
         src.data_ptr(), row_offsets.data_ptr(), split.chunks.data_ptr(),
         split.long_rows.data_ptr(), split.long_first.data_ptr(), out.data_ptr(),
         partial.data_ptr(), num_rows, split.num_chunks, split.num_long, h, d,
-        split.threshold, torch.cuda.current_stream(x.device).cuda_stream,
+        split.threshold, launch.stream(device),
     )
-    build.raise_on_error(lib, rc, name)
-    csr_segment_sum_heads.launches += 1
     return out
-
-
-csr_segment_sum_heads.launches = 0
 
 
 def csr_sddmm_heads_plain(g, x, src, row_offsets, num_heads: int) -> torch.Tensor:
@@ -163,6 +118,7 @@ def csr_sddmm_heads_plain(g, x, src, row_offsets, num_heads: int) -> torch.Tenso
     return out
 
 
+@launch.counted("K4")
 def csr_sddmm_heads(g, x, src, row_offsets, num_heads: int,
                     split: Optional[RowSplit] = None) -> torch.Tensor:
     """float32[E_pad, H] per-edge head dots ``<g[r_e, h], x[src_e, h]>`` (K4).
@@ -177,33 +133,28 @@ def csr_sddmm_heads(g, x, src, row_offsets, num_heads: int,
     or raises.
     """
     name = "csr_sddmm_heads"
-    _check(name, {"g": g, "x": x}, {}, {"src": src, "row_offsets": row_offsets}, num_heads)
-    if (g.shape[1] != x.shape[1] or x.shape[1] % num_heads
+    device = _SDDMM(g, x, src, row_offsets)
+    if g.dtype != x.dtype:
+        raise ValueError(f"{name}: g and x must share one dtype")
+    if (num_heads < 1 or g.shape[1] != x.shape[1] or x.shape[1] % num_heads
             or g.shape[0] != row_offsets.numel() - 1):
         raise ValueError(f"{name}: g [num_rows, H*D], x [*, H*D] and row_offsets "
                          f"[num_rows + 1] disagree: {tuple(g.shape)}, {tuple(x.shape)}, "
                          f"{tuple(row_offsets.shape)}")
     check_split(name, split, row_offsets, src)
-    if x.device.type == "cpu":
+    if g.is_cpu:
         return csr_sddmm_heads_plain(g, x, src, row_offsets, num_heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
     if split is None:
         split = derive_split(row_offsets)
-    lib = _lib()
     e_pad, d = src.shape[0], x.shape[1] // num_heads
-    out = torch.empty((e_pad, num_heads), dtype=torch.float32, device=x.device)
-    vec = min(float_vec(x.dtype, d, x.data_ptr()), float_vec(x.dtype, d, g.data_ptr()))
-    rc = lib.egt_csr_sddmm_heads(
+    out = torch.empty((e_pad, num_heads), dtype=torch.float32, device=device)
+    vec = min(launch.float_vec(x.dtype, d, x.data_ptr()),
+              launch.float_vec(x.dtype, d, g.data_ptr()))
+    launch.run(
+        csr_sddmm_heads, _LIB, "egt_csr_sddmm_heads",
         g.data_ptr(), x.data_ptr(), DTYPE_CODE[x.dtype], vec, src.data_ptr(),
         row_offsets.data_ptr(),
         split.chunks.data_ptr(), out.data_ptr(), split.num_rows, split.num_chunks,
-        num_heads, d, split.threshold, split.num_edges, e_pad,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        num_heads, d, split.threshold, split.num_edges, e_pad, launch.stream(device),
     )
-    build.raise_on_error(lib, rc, name)
-    csr_sddmm_heads.launches += 1
     return out
-
-
-csr_sddmm_heads.launches = 0

@@ -21,58 +21,19 @@ kernel for tensors on a CUDA device; it never moves work between them.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
-from efficient_gnns_tpu_torch.graphs.row_split import RowSplit
-from efficient_gnns_tpu_torch.ops.cuda import build
-from efficient_gnns_tpu_torch.ops.cuda.segment_sum import (
-    DTYPE_CODE,
-    check_split,
-    derive_split,
-    float_vec,
-)
+from efficient_gnns_tpu_torch.graphs.row_split import RowSplit, check_split, derive_split
+from efficient_gnns_tpu_torch.ops.cuda import launch
+from efficient_gnns_tpu_torch.ops.cuda.launch import DTYPE_CODE, FEATURES, INDEX
 from efficient_gnns_tpu_torch.ops.segment import csr_row_ids, gather
 
 _CHUNK_ELEMENTS = 1 << 27  # the plain version gathers at most this many floats at once
-
-
-def _lib() -> ctypes.CDLL:
-    lib = build.load("segment_sddmm")
-    if lib.egt_csr_sddmm.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.egt_csr_sddmm.argtypes = [p, p, i, i, p, p, p, p, i, i, i, i, i, i, p]
-        lib.egt_csr_sddmm.restype = i
-        lib.egt_cuda_error_string.argtypes = [i]
-        lib.egt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(g, x, src, row_offsets) -> None:
-    for name, t in (("g", g), ("x", x)):
-        if t.dim() != 2 or t.dtype not in DTYPE_CODE:
-            raise ValueError(
-                f"csr_sddmm: {name} must be 2-D float32/bfloat16, got {t.dtype} "
-                f"{tuple(t.shape)}")
-    for name, t in (("src", src), ("row_offsets", row_offsets)):
-        if t.dim() != 1 or t.dtype != torch.int32:
-            raise ValueError(
-                f"csr_sddmm: {name} must be 1-D int32, got {t.dtype} {tuple(t.shape)}")
-    if (g.dtype != x.dtype or g.shape[1] != x.shape[1] or g.shape[1] < 1
-            or g.shape[0] != row_offsets.numel() - 1):
-        raise ValueError(
-            "csr_sddmm: g [num_rows, F] and x [*, F] of one dtype disagree with "
-            f"row_offsets [num_rows + 1]: {g.dtype} {tuple(g.shape)}, {x.dtype} "
-            f"{tuple(x.shape)}, {tuple(row_offsets.shape)}")
-    tensors = [g, x, src, row_offsets]
-    if any(t.device != g.device for t in tensors):
-        raise ValueError("csr_sddmm: all tensors must be on one device")
-    if any(not t.is_contiguous() for t in tensors):
-        raise ValueError("csr_sddmm needs contiguous tensors")
-    if any(t.numel() >= 2**31 for t in tensors):
-        raise ValueError("csr_sddmm: int32 indexing needs < 2**31 entries per tensor")
+_LIB = launch.Library("segment_sddmm", {"egt_csr_sddmm": "ppiippppiiiiiip"})
+_CHECK = launch.Checks("csr_sddmm", ("g", 2, FEATURES), ("x", 2, FEATURES), ("src", 1, INDEX),
+                       ("row_offsets", 1, INDEX))
 
 
 def csr_sddmm_plain(g, x, src, row_offsets) -> torch.Tensor:
@@ -89,6 +50,7 @@ def csr_sddmm_plain(g, x, src, row_offsets) -> torch.Tensor:
     return out
 
 
+@launch.counted("K3")
 def csr_sddmm(g, x, src, row_offsets, split: Optional[RowSplit] = None) -> torch.Tensor:
     """float32[E_pad] per-edge dots ``<g[r_e], x[src_e]>`` (K3).
 
@@ -99,27 +61,27 @@ def csr_sddmm(g, x, src, row_offsets, split: Optional[RowSplit] = None) -> torch
     derived here, which costs a host copy per call. On a CUDA tensor this
     launches the kernel (counted in ``csr_sddmm.launches``) or raises.
     """
-    _check(g, x, src, row_offsets)
+    device = _CHECK(g, x, src, row_offsets)
+    if (g.dtype != x.dtype or g.shape[1] != x.shape[1] or g.shape[1] < 1
+            or g.shape[0] != row_offsets.numel() - 1):
+        raise ValueError(
+            "csr_sddmm: g [num_rows, F] and x [*, F] of one dtype disagree with "
+            f"row_offsets [num_rows + 1]: {g.dtype} {tuple(g.shape)}, {x.dtype} "
+            f"{tuple(x.shape)}, {tuple(row_offsets.shape)}")
     check_split("csr_sddmm", split, row_offsets, src)
-    if x.device.type == "cpu":
+    if g.is_cpu:
         return csr_sddmm_plain(g, x, src, row_offsets)
-    if x.device.type != "cuda":
-        raise ValueError(f"csr_sddmm runs on cpu or cuda, not {x.device}")
     if split is None:
         split = derive_split(row_offsets)
-    lib = _lib()
     e_pad, f = src.shape[0], x.shape[1]
-    out = torch.empty((e_pad,), dtype=torch.float32, device=x.device)
-    vec = min(float_vec(x.dtype, f, x.data_ptr()), float_vec(x.dtype, f, g.data_ptr()))
-    rc = lib.egt_csr_sddmm(
+    out = torch.empty((e_pad,), dtype=torch.float32, device=device)
+    vec = min(launch.float_vec(x.dtype, f, x.data_ptr()),
+              launch.float_vec(x.dtype, f, g.data_ptr()))
+    launch.run(
+        csr_sddmm, _LIB, "egt_csr_sddmm",
         g.data_ptr(), x.data_ptr(), DTYPE_CODE[x.dtype], vec, src.data_ptr(),
         row_offsets.data_ptr(), split.chunks.data_ptr(), out.data_ptr(),
         split.num_rows, split.num_chunks, f, split.threshold, split.num_edges, e_pad,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        launch.stream(device),
     )
-    build.raise_on_error(lib, rc, "csr_sddmm")
-    csr_sddmm.launches += 1
     return out
-
-
-csr_sddmm.launches = 0

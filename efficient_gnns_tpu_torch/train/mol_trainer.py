@@ -21,7 +21,7 @@ the evaluation's ROC-AUCs are computed there too (``roc_auc_device``), and
 ``trainer.criterion``, ``trainer.backward``, ``trainer.optimizer``) for each
 batch, ``trainer.eval``, and ``trainer.readback`` around the chunk's copy.
 
-On a CUDA device a supervised step is ~1,600 kernels on about a thousand
+On a CUDA device a supervised step is 930 kernels on about a thousand
 atoms, and launching them one by one costs the host about nine times what
 they cost the card. So after the first ``GRAPH_AFTER_STEPS`` steps, which
 run eagerly (they make the gradients and Adam's state), each batch

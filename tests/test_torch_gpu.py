@@ -172,7 +172,7 @@ def test_attention_kernels_match_plain_on_card(rng, cuda_device, heads, d):
 def test_heads_kernels_bf16_match_plain_on_card(rng, cuda_device, heads, d, vec):
     # K2 and K4 reading bfloat16 messages in loads of 8, 2 and 1 elements;
     # the plain versions form the same float32 products of the bf16 values
-    from efficient_gnns_tpu_torch.ops.cuda.segment_sum import float_vec
+    from efficient_gnns_tpu_torch.ops.cuda.launch import float_vec
 
     n = 70
     s, r = _attention_edges(rng)

@@ -18,9 +18,9 @@ from efficient_gnns_tpu.graphs import build_graph as jax_build_graph
 from efficient_gnns_tpu.native import host as jax_host
 from efficient_gnns_tpu.sampling.saint import GraphSaintRandomWalkSampler as JaxSampler
 from efficient_gnns_tpu_torch.data import synthetic_mag_dataset
-from efficient_gnns_tpu_torch.graphs import build_graph, build_row_split
+from efficient_gnns_tpu_torch.graphs import build_graph, build_row_split, row_split
 from efficient_gnns_tpu_torch.native import host
-from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum, segment_sum as k1_module
+from efficient_gnns_tpu_torch.ops.cuda import csr_segment_sum
 from efficient_gnns_tpu_torch.sampling import GraphSaintRandomWalkSampler
 
 MAG = dict(n_paper=400, n_author=200, n_inst=12, n_field=40, feat_dim=8, num_classes=4,
@@ -149,7 +149,7 @@ def test_built_splits_are_taken_without_a_host_copy(monkeypatch, rng):
     def no_rebuild(*a, **k):
         raise AssertionError("check_split rebuilt a split that build_graph made")
 
-    monkeypatch.setattr(k1_module, "build_row_split", no_rebuild)
+    monkeypatch.setattr(row_split, "build_row_split", no_rebuild)
     for g in graphs:
         nb = g.max_dst
         x, gy = torch.randn(g.num_nodes, 4), torch.randn(nb, 4)
