@@ -143,7 +143,8 @@ it imports nothing of JAX. Phases, each of which must pass:
     molecules (8,225) and its whole valid and test splits (4,113 each) trains the GIN-E teacher (300 x 5, virtual node) with
     its checkpoint, the GCN student (2 x 64) from it in ``kd`` and ``nce
     --kd_and_aux``, then the PNA teacher (300 x 5), ``MOL_EPOCHS`` each,
-    K1's launches checked against ``_mol_launches``;
+    K1's and the encoder kernels' launches checked against the model calls
+    that ran in Python (``_mol_expected``: eager steps and graph captures);
 28. the full-count set written as OGB's ogbg-molhiv raw cache, read back
     by ``data/molhiv.py`` (every molecule equal) and trained on one epoch
     through ``cli.mol --dataset ogbg-molhiv``;
@@ -193,7 +194,13 @@ it imports nothing of JAX. Phases, each of which must pass:
     its F = 256 and 40) against its plain version and one cuSPARSE call,
     and at ``lpw``'s shapes on the train subgraph (its softmax sums at F = 1,
     its edge gathers' backward at F = 256) against its plain version and
-    ``torch.segment_reduce`` / ``index_add_`` (``K1 parallel ...`` records).
+    ``torch.segment_reduce`` / ``index_add_`` (``K1 parallel ...`` records);
+33. OGB's atom and bond encoders' kernels (``categorical``) at the molhiv
+    batch's shapes, 1,280 atoms over 9 tables and 4,096 bonds over 3, F =
+    300: the forward against the chain of ``F.embedding`` and adds (the same
+    bits), the backward against a float64 sum (within 1e-5 of each output's
+    sum of |terms|), two launches the same bits, beside the chain and its
+    autograd backward (``categorical fwd|bwd ...`` records).
 
 ``--only a,b`` runs the named phases alone (see ``main``). The last lines
 are the kernels' JSON record, the ``nvidia-smi`` line and
@@ -203,6 +210,7 @@ are the kernels' JSON record, the ``nvidia-smi`` line and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import cProfile
 import json
 import os
@@ -1423,6 +1431,69 @@ def phase_masked_bn():
     return records, failures
 
 
+def phase_categorical():
+    """OGB's atom and bond encoders' kernels (``ops/cuda/categorical.py``) at
+    the molhiv batch's shapes: the forward against the chain of
+    ``F.embedding`` and adds (the same bits), the backward against a float64
+    sum of the rows by category (within ``TOL`` of each output's sum of
+    |terms|), each twice; ids drawn one past each end of the vocabularies, so
+    some are clipped. Times beside the byte bound (ids, tables and out
+    forward; dy, ids and the gradients backward) and the chain with its
+    autograd backward. Returns (records, failures)."""
+    import torch
+
+    from efficient_gnns_tpu_torch.models.mol import ATOM_FEATURE_DIMS, BOND_FEATURE_DIMS
+    from efficient_gnns_tpu_torch.ops.cuda import categorical as C
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    records, failures = [], []
+    f = 300
+    for what, rows, vocab in (("atoms", 1280, ATOM_FEATURE_DIMS),
+                              ("bonds", 4096, BOND_FEATURE_DIMS)):
+        ids = torch.stack([torch.randint(-1, v + 1, (rows,), generator=gen, device=DEVICE)
+                           for v in vocab], 1).int()
+        tables = [torch.randn(v, f, generator=gen, device=DEVICE) / f ** 0.5 for v in vocab]
+        dy = torch.randn(rows, f, generator=gen, device=DEVICE)
+        leaves = [w.clone().requires_grad_(True) for w in tables]
+        chain = C.categorical_encode_plain(ids, leaves)  # kept for its backward alone
+
+        def chain_bwd():
+            return torch.autograd.grad(chain, leaves, dy, retain_graph=True)
+
+        def bwd_rule(got, want):
+            worst, ok = 0.0, True
+            for t, (g, v) in enumerate(zip(got, vocab)):
+                k = ids[:, t].long().clamp(0, v - 1)
+                ref = torch.zeros(v, f, dtype=torch.float64, device=DEVICE).index_add_(
+                    0, k, dy.double())
+                terms = torch.zeros_like(ref).index_add_(0, k, dy.double().abs())
+                diff = (g.double() - ref).abs()
+                worst, ok = max(worst, float(diff.max())), ok and bool((diff <= TOL * terms).all())
+            return worst, ok
+
+        n_ids, n_tab, n_rows = rows * len(vocab) * 4, sum(vocab) * f * 4, rows * f * 4
+        shape = {"rows": rows, "tables": len(vocab), "vocab": list(vocab), "F": f}
+        cases = {
+            "fwd": (lambda: C.categorical_fwd(ids, tables),
+                    lambda: C.categorical_encode_plain(ids, tables), None, n_ids + n_tab + n_rows),
+            "bwd": (lambda: C.categorical_bwd(dy, ids, tuple(vocab)), chain_bwd, bwd_rule,
+                    n_rows + n_ids + n_tab)}
+        for direction, (kernel, plain, rule, n_bytes) in cases.items():
+            rec, fails = _kernel_case(
+                f"categorical {direction} {what} R={rows} T={len(vocab)} F={f}", kernel, plain,
+                rule=rule, same={"two launches": kernel}, device_ms=True,
+                library=("F.embedding chain" + (" and its autograd backward"
+                                                if direction == "bwd" else ""), lambda p=plain: p),
+                source="categorical.cu",
+                replaces="none: models/mol.py::CategoricalEncoder's F.embedding lookups and adds "
+                         "(the JAX encoder's XLA gathers and adds)",
+                shape=shape, n_bytes=n_bytes, launch_key=f"categorical_{direction}")
+            records.append(rec)
+            failures += fails
+    torch.cuda.synchronize()
+    return records, failures
+
+
 def _teacher_run(argv, expected):
     """One run of the teacher CLI at arxiv shape with every kernel's counter
     read around it; returns (launches by kernel, failures)."""
@@ -2567,19 +2638,6 @@ def _mol_model_launches(conv, layers, vn):
     return fwd, bwd
 
 
-def _mol_launches(counts, student, teacher=None):
-    """K1 launches of ``MOL_EPOCHS`` epochs of ``MolTrainer`` on ``counts``
-    molecules: each train step the student's forward and backward and the
-    online teacher's forward; each evaluation one student forward a batch of
-    the three splits. ``student`` / ``teacher`` are ``(conv, layers,
-    virtual_node)``."""
-    train = -(-counts["n_train"] // MOL_BATCH)
-    evals = train + sum(-(-counts[k] // MOL_BATCH) for k in ("n_valid", "n_test"))
-    fwd, bwd = _mol_model_launches(*student)
-    t_fwd = _mol_model_launches(*teacher)[0] if teacher else 0
-    return MOL_EPOCHS * (train * (fwd + bwd + t_fwd) + evals * fwd)
-
-
 def _mol_dataset():
     from efficient_gnns_tpu_torch.data import synthetic_molhiv_dataset
 
@@ -2808,35 +2866,76 @@ def phase_mol_kernels(ds):
     return records, failures
 
 
-def _mol_run(tag, argv, expected):
-    """One run of ``cli.mol`` with every kernel's counter read around it;
-    returns (summary, K1 launches, failures)."""
+@contextlib.contextmanager
+def _mol_expected():
+    """Yields the launches, by counter, that the model calls made inside the
+    block call for. A ``MolGNN`` call on the card that runs in Python (an
+    eager step or evaluation, or the capture of a step's or the
+    evaluation's graph; a replay runs none) launches K1 as
+    ``_mol_model_launches`` says, forward and, where it takes gradients,
+    backward; each encoder call launches ``categorical_fwd`` once and, where
+    it takes gradients, ``categorical_bwd`` once; K2-K7 never launch."""
+    import torch
+
+    from efficient_gnns_tpu_torch.models.mol import CategoricalEncoder, MolGNN
+
+    want = {k: 0 for k in _counters("K", "categorical_")}
+
+    def expect(module, args, out):
+        if not isinstance(module, (MolGNN, CategoricalEncoder)):
+            return
+        params = list(module.parameters())
+        if not params[0].is_cuda:
+            return
+        grad = torch.is_grad_enabled() and any(p.requires_grad for p in params)
+        if isinstance(module, MolGNN):
+            fwd, bwd = _mol_model_launches(module.conv, module.num_layers, module.virtual_node)
+            want["K1"] += fwd + (bwd if grad else 0)
+        else:
+            want["categorical_fwd"] += 1
+            want["categorical_bwd"] += int(grad)
+
+    hook = torch.nn.modules.module.register_module_forward_hook(expect)
+    try:
+        yield want
+    finally:
+        hook.remove()
+
+
+def _mol_run(tag, argv):
+    """One run of ``cli.mol`` with K1's and the encoder kernels' counters
+    read around it, against ``_mol_expected``; the encoder kernels have to
+    launch. Returns (summary, launches by counter, failures)."""
     import math
 
     from efficient_gnns_tpu_torch.cli import mol
 
-    counters = _counters("K")
+    counters = _counters("K", "categorical_")
     for c in counters.values():
         c.launches = 0
-    summary = mol.main(["--epochs", str(MOL_EPOCHS), "--runs", "1", "--out_dir", OUT_DIR,
-                        "--expt_name", MOL_EXPT, "--device", DEVICE, *argv])
+    with _mol_expected() as want:
+        summary = mol.main(["--epochs", str(MOL_EPOCHS), "--runs", "1", "--out_dir", OUT_DIR,
+                            "--expt_name", MOL_EXPT, "--device", DEVICE, *argv])
     launches = {k: c.launches for k, c in counters.items()}
-    want = {k: 0 for k in counters}
-    want["K1"] = expected
     secs = summary["seconds"]["run0"]
     losses = summary["losses"]["run0"]
-    print(f"mol slice {tag}: launches {launches} (expected K1 {expected} and nothing else); "
-          f"train epochs (host clock) {[round(s['train'], 2) for s in secs]} s, evaluations "
-          f"{[round(s['eval'], 2) for s in secs]} s; losses {[round(v, 4) for v in losses]}; "
+    print(f"mol slice {tag}: launches {launches} (expected {want}); epochs, train and "
+          f"evaluation (host clock) {[round(s['epoch'], 2) for s in secs]} s; losses "
+          f"{[round(v, 4) for v in losses]}; "
           f"AUC train/valid/test by epoch "
           f"{[[round(a, 4) for a in aucs] for aucs in summary['aucs']['run0']]}", flush=True)
     failures = []
-    if launches != want:
-        failures.append(f"mol slice {tag}: launches {launches}")
+    if launches != want or not launches["categorical_fwd"]:
+        failures.append(f"mol slice {tag}: launches {launches}, expected {want}")
     if not all(math.isfinite(v) for v in losses) or not all(
             math.isfinite(a) for aucs in summary["aucs"]["run0"] for a in aucs):
         failures.append(f"mol slice {tag}: losses or AUCs not finite")
-    return summary, launches["K1"], failures
+    return summary, launches, failures
+
+
+def _add(total, more):
+    """``total`` with each count of ``more`` added."""
+    return {k: total.get(k, 0) + more.get(k, 0) for k in {*total, *more}}
 
 
 def phase_mol_slice():
@@ -2846,32 +2945,31 @@ def phase_mol_slice():
     best-validation checkpoint, the GCN student (2 x 64) from it in ``kd``
     and in ``nce --kd_and_aux`` (``experiments/molhiv.json``'s
     ``gcn-gine/kd`` and ``gcn-gine/nce`` points), then the PNA teacher (300 x
-    5, 4 towers). K1 counted around each run against ``_mol_launches``,
-    nothing else launched. The checkpoint is removed. Returns (K1 launches,
-    failures)."""
+    5, 4 towers). K1 and the encoder kernels counted around each run
+    (``_mol_run``). The checkpoint is removed. Returns (launches by
+    counter, failures)."""
     from efficient_gnns_tpu_torch.cli.mol import checkpoint_path
 
-    gine, pna, gcn = ("gine", 5, True), ("pna", 5, False), ("gcn", 2, False)
-    failures, k1 = [], 0
+    failures, launches = [], {}
     try:
         _, n, fails = _mol_run("teacher gine 300 x 5 supervised",
-                               MOL_DATA + ["--gnn", "gine"] + MOL_TEACHER, _mol_launches(MOL_SLICE, gine))
-        k1, failures = k1 + n, failures + fails
+                               MOL_DATA + ["--gnn", "gine"] + MOL_TEACHER)
+        launches, failures = _add(launches, n), failures + fails
         ckpt = checkpoint_path(OUT_DIR, MOL_EXPT, "gine", 0)
         if not os.path.exists(ckpt):
-            return k1, failures + ["mol slice: no teacher checkpoint"]
+            return launches, failures + ["mol slice: no teacher checkpoint"]
         print(f"mol checkpoint: {os.path.getsize(ckpt)} bytes", flush=True)
         for tag, argv in (("student gcn 2 x 64 kd", ["--training", "kd"]),
                           ("student gcn 2 x 64 nce --kd_and_aux", MOL_NCE)):
             _, n, fails = _mol_run(tag, MOL_DATA + MOL_STUDENT + argv + [
-                "--teacher_path", os.path.dirname(ckpt)], _mol_launches(MOL_SLICE, gcn, gine))
-            k1, failures = k1 + n, failures + fails
+                "--teacher_path", os.path.dirname(ckpt)])
+            launches, failures = _add(launches, n), failures + fails
         _, n, fails = _mol_run("teacher pna 300 x 5 supervised",
-                               MOL_DATA + ["--gnn", "pna"] + MOL_TEACHER, _mol_launches(MOL_SLICE, pna))
-        k1, failures = k1 + n, failures + fails
+                               MOL_DATA + ["--gnn", "pna"] + MOL_TEACHER)
+        launches, failures = _add(launches, n), failures + fails
     finally:  # the checkpoints are not kept
         shutil.rmtree(os.path.join(OUT_DIR, "mol_ckpt"), ignore_errors=True)
-    return k1, failures
+    return launches, failures
 
 
 def _write_ints_gz(path, arr):
@@ -2893,8 +2991,9 @@ def phase_mol_cache(ds):
     cache (train, valid, test in order, the splits their positions), read
     back by ``data/molhiv.py::load_molhiv`` (every molecule equal to the
     written one), then ``cli.mol --dataset ogbg-molhiv`` trains the GCN
-    student (2 x 64, ``supervised``) one epoch on it, K1 counted. The cache
-    is removed. Returns (K1 launches, failures)."""
+    student (2 x 64, ``supervised``) one epoch on it, K1 and the encoder
+    kernels counted (``_mol_run``). The cache is removed. Returns (launches
+    by counter, failures)."""
     import numpy as np
 
     from efficient_gnns_tpu_torch.data import load_molhiv
@@ -2902,7 +3001,7 @@ def phase_mol_cache(ds):
 
     files = molhiv_raw_files(os.path.join(MOL_ROOT, "ogbg_molhiv"))
     mols = ds.train + ds.valid + ds.test
-    failures, k1 = [], 0
+    failures, launches = [], {}
     try:
         t0 = time.perf_counter()
         _write_ints_gz(files["edge.csv.gz"], np.concatenate(
@@ -2938,14 +3037,13 @@ def phase_mol_cache(ds):
         if not same:
             failures.append("mol cache: the loaded dataset differs from the written one")
         del got
-        _, k1, fails = _mol_run("cache gcn 2 x 64 supervised", [
-            "--dataset", "ogbg-molhiv", "--data_root", MOL_ROOT, "--gnn", "gcn"],
-            _mol_launches(MOL_COUNTS, ("gcn", 2, False)))
+        _, launches, fails = _mol_run("cache gcn 2 x 64 supervised", [
+            "--dataset", "ogbg-molhiv", "--data_root", MOL_ROOT, "--gnn", "gcn"])
         failures += fails
     finally:  # the cache and the run's checkpoint are not kept
         shutil.rmtree(MOL_ROOT, ignore_errors=True)
         shutil.rmtree(os.path.join(OUT_DIR, "mol_ckpt"), ignore_errors=True)
-    return k1, failures
+    return launches, failures
 
 
 def phase_mol_profile(ds):
@@ -2954,11 +3052,11 @@ def phase_mol_profile(ds):
     node, ``supervised``) and of the GCN student (2 x 64, ``kd`` with a
     random GIN-E teacher online) through ``MolTrainer``: a warm chunk, then
     one steady chunk (host clock, before any profile; K1 counted against
-    ``_mol_launches``), the host's pack time a batch alone, one evaluation
+    ``_mol_expected``), the host's pack time a batch alone, one evaluation
     of the valid split (kept on the device), the host functions of one
     chunk by own time (cProfile), and one profiled chunk (device busy and
-    idle share, top device ops). Returns (K1 launches of the steady chunks,
-    failures)."""
+    idle share, top device ops). Returns (K1 launches of the steady chunks
+    by counter, failures)."""
     import torch
 
     from efficient_gnns_tpu_torch.data import MolDataset
@@ -2981,11 +3079,9 @@ def phase_mol_profile(ds):
         tr = MolTrainer(cfg, chunk, model, teacher=online, device=DEVICE)
         tr.train_epoch(1)  # warm-up
         csr_segment_sum.launches = 0
-        ms = _steady_ms(lambda: tr.train_epoch(2), MOL_PROFILE_STEPS)
-        launches = csr_segment_sum.launches
-        fwd, bwd = _mol_model_launches(*student)
-        want = MOL_PROFILE_STEPS * (fwd + bwd + (_mol_model_launches(*teacher)[0]
-                                                 if teacher else 0))
+        with _mol_expected() as expected:  # a step graph's replay launches nothing here
+            ms = _steady_ms(lambda: tr.train_epoch(2), MOL_PROFILE_STEPS)
+        launches, want = csr_segment_sum.launches, expected["K1"]
         k1 += launches
         t0 = time.perf_counter()
         n = sum(1 for _ in tr.batcher.epoch(3))
@@ -3009,11 +3105,11 @@ def phase_mol_profile(ds):
                   f"{fn[2] if fn[0] == '~' else f'{os.path.basename(fn[0])}:{fn[1]} {fn[2]}'} "
                   f"{st[2] * 1e3:.1f} ms {st[1]}x" for fn, st in top), flush=True)
         busy = _profile(tag, lambda: tr.train_epoch(3), 1,
-                        also=("split_segment_sum", "embedding", "index"))
+                        also=("split_segment_sum", "categorical", "index"))
         print(f"{tag}: device busy {busy:.1f} ms of the steady {ms * MOL_PROFILE_STEPS:.1f} ms "
               f"chunk: {100 * (1 - busy / (ms * MOL_PROFILE_STEPS)):.1f}% idle", flush=True)
         del tr, model, online
-    return k1, failures
+    return {"K1": k1}, failures
 
 def phase_heads_bf16_kernels(graph):
     """K2 and K4 reading bfloat16 messages against their plain versions at the
@@ -3475,7 +3571,7 @@ PHASES = ("k1", "attention_kernels", "k3", "split_edges", "reference", "teacher_
           "sign_slice", "checkpoint", "ogbn_cache", "runtime_spmm", "sign_profile", "ppi_kernels",
           "ppi_reference", "ppi_slice", "ppi_profile", "mag_kernels", "mag_reference", "mag_slice",
           "mag_profile", "mol_reference", "mol_kernels", "mol_slice", "mol_cache", "mol_profile",
-          "heads_bf16_kernels", "microbench", "parallel")
+          "heads_bf16_kernels", "microbench", "parallel", "categorical")
 
 
 def main(argv=None) -> int:
@@ -3524,8 +3620,9 @@ def main(argv=None) -> int:
                         ("hub_fused", phase_hub_fused)):
         recs, fails = run(name, phase, ds.graph) or ([], [])
         records, failures = records + recs, failures + fails
-    recs, fails = run("masked_bn", phase_masked_bn) or ([], [])
-    records, failures = records + recs, failures + fails
+    for name, phase in (("masked_bn", phase_masked_bn), ("categorical", phase_categorical)):
+        recs, fails = run(name, phase) or ([], [])
+        records, failures = records + recs, failures + fails
     failures += run("split_edges", phase_split_edges) or []
     if run("reference", phase_reference) is False:
         failures.append("cuda trainer disagrees with the cpu trainer")
@@ -3576,15 +3673,15 @@ def main(argv=None) -> int:
         mag_k1, failures = mag_k1 + more, failures + fails
         del mag
     failures += run("mol_reference", phase_mol_reference) or []
-    mol_k1, fails = run("mol_slice", phase_mol_slice) or (0, [])
+    mol_launches, fails = run("mol_slice", phase_mol_slice) or ({}, [])
     failures += fails
     if chosen & {"mol_kernels", "mol_cache", "mol_profile"}:
         molds = _mol_dataset()
         recs, fails = run("mol_kernels", phase_mol_kernels, molds) or ([], [])
         records, failures = records + recs, failures + fails
         for name, phase in (("mol_cache", phase_mol_cache), ("mol_profile", phase_mol_profile)):
-            more, fails = run(name, phase, molds) or (0, [])
-            mol_k1, failures = mol_k1 + more, failures + fails
+            more, fails = run(name, phase, molds) or ({}, [])
+            mol_launches, failures = _add(mol_launches, more), failures + fails
         del molds
     par_records, par_k1, fails = run("parallel", phase_parallel, smi) or ([], 0, [])
     records, failures = records + par_records, failures + fails
@@ -3593,12 +3690,14 @@ def main(argv=None) -> int:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
         return 1
     launches["K1"] = (k1_launches + launches.get("K1", 0) + rt_launches.get("K1", 0)
-                      + sign_launches + ck_launches + ogbn_launches + mag_k1 + mol_k1 + par_k1)
+                      + sign_launches + ck_launches + ogbn_launches + mag_k1
+                      + mol_launches.get("K1", 0) + par_k1)
     launches["K1 parallel"] = par_k1
     launches["K3"] = launches.get("K3", 0) + rt_launches.get("K3", 0)
     for k, n in ppi_launches.items():
         launches[k] = launches.get(k, 0) + n
     launches.update(mb_launches)
+    launches.update({k: n for k, n in mol_launches.items() if k.startswith("categorical_")})
     for r in records:  # a shape that the paths never launch counts 0
         on_path = r.get("on_main_path", True)
         key = r.pop("launch_key", r["name"].split()[0])

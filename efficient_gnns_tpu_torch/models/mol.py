@@ -25,11 +25,11 @@ import math
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from efficient_gnns_tpu_torch.graphs.container import BatchedGraphs
 from efficient_gnns_tpu_torch.models.layers import Dense, MaskedBatchNorm, dropout
+from efficient_gnns_tpu_torch.ops.cuda.categorical import categorical_encode
 from efficient_gnns_tpu_torch.ops.segment import segment_max, segment_min
 from efficient_gnns_tpu_torch.ops.sorted_segment import csr_segment_sum_sorted, gather_rows_csr
 
@@ -42,9 +42,11 @@ BOND_FEATURE_DIMS = (5, 6, 2)
 class CategoricalEncoder(nn.Module):
     """Sum of one embedding per feature column (OGB AtomEncoder /
     BondEncoder); each column is clipped into its vocabulary. Tables are
-    ``N(0, 1/features)``, flax ``nn.Embed``'s default. The lookup is
-    ``F.embedding``, whose CUDA backward sums repeated indices without
-    float atomics."""
+    ``N(0, 1/features)``, flax ``nn.Embed``'s default. On a CUDA device the
+    lookup and sum is one kernel a direction (``ops/cuda/categorical.py``:
+    the chain's bits forward; backward every table's gradient at once, by
+    category in a fixed order, without float atomics); on the CPU the chain
+    of ``F.embedding`` lookups and adds."""
 
     def __init__(self, dims: Sequence[int], features: int, *, generator: torch.Generator,
                  device="cuda"):
@@ -52,15 +54,9 @@ class CategoricalEncoder(nn.Module):
         self.embs = nn.ParameterList(
             nn.Parameter((torch.randn(v, features, generator=generator)
                           / math.sqrt(features)).to(device)) for v in dims)
-        self.register_buffer("max_index", torch.tensor(
-            [v - 1 for v in dims], dtype=torch.int32, device=device), persistent=False)
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
-        idx = torch.minimum(feats.clamp_min(0), self.max_index)
-        out = F.embedding(idx[..., 0], self.embs[0])
-        for i in range(1, len(self.embs)):
-            out = out + F.embedding(idx[..., i], self.embs[i])
-        return out
+        return categorical_encode(feats, list(self.embs))
 
 
 def atom_encoder(features: int, *, generator: torch.Generator,

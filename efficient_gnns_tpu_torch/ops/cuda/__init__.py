@@ -11,9 +11,15 @@ hub attention layer's fused elementwise passes around K1, which replace no
 TPU kernel: ``hub_messages``, ``hub_epilogue``, ``hub_cotangent``,
 ``hub_message_grad`` (``hub_fused.py``). MaskedBatchNorm + ReLU, forward,
 backward and eval, which replaces no TPU kernel either:
-``masked_batch_norm`` (``masked_bn.py``).
+``masked_batch_norm`` (``masked_bn.py``). OGB's atom and bond encoders,
+the lookup-and-sum forward and every table's gradient, which replace no TPU
+kernel either: ``categorical_encode`` (``categorical.py``).
 """
 
+from efficient_gnns_tpu_torch.ops.cuda.categorical import (
+    categorical_encode,
+    categorical_encode_plain,
+)
 from efficient_gnns_tpu_torch.ops.cuda.hub_fused import (
     hub_cotangent,
     hub_cotangent_plain,
@@ -48,6 +54,8 @@ from efficient_gnns_tpu_torch.ops.cuda.segment_thin import (
 )
 
 __all__ = [
+    "categorical_encode",
+    "categorical_encode_plain",
     "csr_sddmm",
     "csr_sddmm_heads",
     "csr_sddmm_heads_plain",

@@ -826,3 +826,129 @@ def test_masked_bn_kernels_carry_the_models_on_card(rng, cuda_device):
     assert counts["bn_fused"] >= 2 * 10 and counts["bn_grad_fused"] >= 2 * 10
     assert counts["bn_eval"] >= 10
     assert counts["bn_partials"] == counts["bn_grad_partials"] == 0
+
+
+# OGB's atom and bond encoders' kernels (ops/cuda/categorical.py): (rows,
+# vocabularies, F) at the molhiv batch's shapes, past its budget and at
+# widths that take 2- and 1-column loads
+ATOM_DIMS = (119, 5, 12, 12, 10, 6, 6, 2, 2)
+BOND_DIMS = (5, 6, 2)
+ENC_SHAPES = [
+    (1280, ATOM_DIMS, 300),  # a molhiv batch's atoms
+    (4096, BOND_DIMS, 300),  # its bonds
+    (1152, ATOM_DIMS, 300),  # a batch past the budget, padded to its own size
+    (5120, BOND_DIMS, 300),
+    (37, (7, 1, 3), 6),  # 2-column loads, a vocabulary of one
+    (3000, (1, 252, 3), 7),  # 1-column loads, the kernels' 256 bins
+    (0, BOND_DIMS, 300),  # no rows: zero gradients
+]
+
+
+def _enc_inputs(rows, vocab, f, seed=0):
+    """ids drawn from two below to two above each vocabulary (so some are
+    clipped), the tables and a cotangent, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.stack([torch.randint(-2, v + 2, (rows,), generator=g) for v in vocab], 1).int()
+    tables = [torch.randn(v, f, generator=g) for v in vocab]
+    return ids, tables, torch.randn(rows, f, generator=g)
+
+
+def _enc_run(dev, ids, tables, dy):
+    from efficient_gnns_tpu_torch.ops.cuda import categorical as C
+
+    leaves = [w.to(dev).requires_grad_(True) for w in tables]
+    out = C.categorical_encode(ids.to(dev), leaves)
+    grads = torch.autograd.grad(out, leaves, dy.to(dev))
+    return out.detach(), [g.detach() for g in grads]
+
+
+@pytest.mark.parametrize("rows,vocab,f", ENC_SHAPES)
+def test_categorical_kernels_match_the_chain_and_float64_on_card(cuda_device, rows, vocab, f):
+    """The forward has the bits of the chain of ``F.embedding`` and adds; each
+    table's gradient lies within 1e-5 of each output's sum of |terms| of a
+    float64 sum (0 where no row takes the category); a second call gives the
+    same bits; each wrapper counts one launch a call."""
+    from efficient_gnns_tpu_torch.ops.cuda import categorical as C
+
+    ids, tables, dy = _enc_inputs(rows, vocab, f)
+    counts = [k.launches for k in C.KERNELS]
+    out, grads = _enc_run(cuda_device, ids, tables, dy)
+    assert [k.launches - c for k, c in zip(C.KERNELS, counts)] == [1, 1]
+    chain = C.categorical_encode_plain(ids.to(cuda_device), [w.to(cuda_device) for w in tables])
+    assert torch.equal(out, chain)
+    again = _enc_run(cuda_device, ids, tables, dy)
+    assert torch.equal(again[0], out) and all(torch.equal(a, b) for a, b in zip(again[1], grads))
+    for t, (g, v) in enumerate(zip(grads, vocab)):
+        k = ids[:, t].long().clamp(0, v - 1)
+        want = torch.zeros(v, f, dtype=torch.float64).index_add_(0, k, dy.double())
+        terms = torch.zeros(v, f, dtype=torch.float64).index_add_(0, k, dy.double().abs())
+        diff = (g.cpu().double() - want).abs()
+        assert bool((diff <= 1e-5 * terms).all()), float((diff / terms.clamp_min(1e-30)).max())
+    torch.cuda.synchronize()
+
+
+def test_categorical_kernels_replay_in_a_cuda_graph_on_card(cuda_device):
+    """A captured forward and backward, replayed, give the eager call's bits,
+    and read the static ids on each replay."""
+    from efficient_gnns_tpu_torch.ops.cuda import categorical as C
+
+    ids, tables, dy = _enc_inputs(1280, ATOM_DIMS, 300)
+    s_ids, s_dy = ids.to(cuda_device), dy.to(cuda_device)
+    leaves = [w.to(cuda_device).requires_grad_(True) for w in tables]
+
+    def step():
+        out = C.categorical_encode(s_ids, leaves)
+        return (out, *torch.autograd.grad(out, leaves, s_dy))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = step()
+    for seed in (0, 1):
+        new_ids = _enc_inputs(1280, ATOM_DIMS, 300, seed=seed)[0]
+        s_ids.copy_(new_ids)
+        graph.replay()
+        eager = step()
+        assert all(torch.equal(a, b) for a, b in zip(static, eager))
+    torch.cuda.synchronize()
+
+
+def test_categorical_encoder_never_reaches_f_embedding_on_card(cuda_device, monkeypatch):
+    """On the card ``CategoricalEncoder`` (and a ``MolGNN`` step) runs the
+    kernels alone: ``F.embedding`` raises if called. CPU tensors take the
+    chain; the wrapper refuses int64 ids and a table on another device."""
+    from efficient_gnns_tpu_torch.data import MolBatcher, synthetic_molhiv_dataset
+    from efficient_gnns_tpu_torch.models import MolGNN
+    from efficient_gnns_tpu_torch.models import mol
+    from efficient_gnns_tpu_torch.ops.cuda import categorical as C
+
+    def refuse(*a, **kw):
+        raise AssertionError("F.embedding reached")
+
+    monkeypatch.setattr(torch.nn.functional, "embedding", refuse)
+    gen = torch.Generator().manual_seed(0)
+    enc = mol.bond_encoder(300, generator=gen, device=cuda_device)
+    ids = _enc_inputs(4096, BOND_DIMS, 300)[0].to(cuda_device)
+    counts = [k.launches for k in C.KERNELS]
+    enc(ids).square().sum().backward()
+    assert [k.launches - c for k, c in zip(C.KERNELS, counts)] == [1, 1]
+    assert all(w.grad is not None for w in enc.embs)
+    ds = synthetic_molhiv_dataset(n_train=16, n_valid=1, n_test=1, seed=1)
+    mb = next(MolBatcher(ds.train, 16, 24).epoch(0)).to(cuda_device)
+    model = MolGNN("gine", 32, 1, 2, dropout=0.0, virtual_node=True, seed=1,
+                   device=cuda_device)
+    counts = [k.launches for k in C.KERNELS]
+    model(mb.batch, mb.atoms, mb.bonds)[0].sum().backward()
+    assert [k.launches - c for k, c in zip(C.KERNELS, counts)] == [3, 3]
+    with pytest.raises(AssertionError, match="F.embedding reached"):
+        mol.bond_encoder(300, generator=gen, device="cpu")(ids.cpu())
+    with pytest.raises(ValueError, match="feats must be .*int32"):
+        enc(ids.long())
+    with pytest.raises(ValueError, match="one device"):
+        C.categorical_encode(ids, [w.detach().cpu() if i == 1 else w for i, w in
+                                   enumerate(enc.embs)])
+    torch.cuda.synchronize()
